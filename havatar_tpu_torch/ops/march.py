@@ -1,0 +1,306 @@
+"""The fused ray-march kernels: field MLP + alpha compositing per ray.
+
+Port of ``havatar_tpu/ops/pallas_march.py:fused_march_coarse_quad`` and
+``fused_march_fine_quad``. Each has
+
+* a wrapper (``march_coarse``, ``march_fine``) that launches the CUDA kernel
+  of ``csrc/march.cu`` for CUDA tensors, counts its launches in
+  ``<wrapper>.launches``, and raises on any input the kernel does not take;
+* a plain PyTorch twin (``march_coarse_plain``, ``march_fine_plain``) of the
+  same function. The wrapper runs the twin only when it is given CPU
+  tensors; on a CUDA tensor it launches the kernel or raises.
+
+Inputs, per sample: the raw bilinear corner rows of both planes,
+``quads [R, S, 8C]`` (XY quad row ++ ZY quad row, corner-major), and
+``aux [R, S, n_pe + 8]`` f32 (posenc ++ the 8 corner weights). Both kernels
+corner-reduce in f32, round the MLP input [xy | zy | posenc] to the compute
+dtype (the dtype of ``quads``), run the 5-layer field MLP with compute-dtype
+inputs and f32 accumulation, and composite with
+alpha = 1 - exp(-relu(sigma) * delta).
+
+The coarse pass also writes the "keeps": every 2nd sample's radiance packed
+[feat (cf) | rgb (3) | sigma_hi | sigma_lo] in bf16, which the fine pass
+reuses instead of re-evaluating those samples. The fine pass composites
+keeps ++ new samples in CONCAT order with per-ray merge ranks:
+T_i = prod over j with rank_j < rank_i of (1 - alpha_j + 1e-10).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Tuple
+
+import torch
+
+from havatar_tpu_torch.ops import cuda_build
+from havatar_tpu_torch.ops.volume_render import cumprod_exclusive
+
+
+class MarchParams(NamedTuple):
+    """The field MLP as the kernels take it (torch Linear layout [out, in]).
+
+    w0's input columns are permuted from the reference's interleaved plane
+    channels (index 2c + p) to block order [xy (C) | zy (C) | posenc].
+    wh stacks fc_rgbFeat's rows (cf) and fc_alpha's row (1).
+    """
+    w0: torch.Tensor   # [H, 2C + n_pe]
+    b0: torch.Tensor   # [H] f32
+    w1: torch.Tensor   # [H, H]
+    b1: torch.Tensor   # [H] f32
+    wh: torch.Tensor   # [cf + 1, H]
+    bh: torch.Tensor   # [cf + 1] f32
+    wr: torch.Tensor   # [3, cf]
+    br: torch.Tensor   # [3] f32
+
+
+def march_params(layers_xyz, fc_rgbFeat, fc_alpha, fc_rgb, C: int,
+                 n_pe: int, dtype: torch.dtype) -> MarchParams:
+    """Field Linear modules -> MarchParams with weights in ``dtype``."""
+    perm = ([2 * c for c in range(C)] + [2 * c + 1 for c in range(C)]
+            + list(range(2 * C, 2 * C + n_pe)))
+    l0, l1 = layers_xyz
+
+    def w(t):
+        return t.detach().to(dtype).contiguous()
+
+    def b(t):
+        return t.detach().float().contiguous()
+
+    return MarchParams(
+        w(l0.weight[:, perm]), b(l0.bias), w(l1.weight), b(l1.bias),
+        w(torch.cat([fc_rgbFeat.weight, fc_alpha.weight], 0)),
+        b(torch.cat([fc_rgbFeat.bias, fc_alpha.bias], 0)),
+        w(fc_rgb.weight), b(fc_rgb.bias))
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins
+# ---------------------------------------------------------------------------
+
+def _build_x(q2: torch.Tensor, aux2: torch.Tensor, C: int,
+             n_pe: int) -> torch.Tensor:
+    """[T, 8C] quad rows + [T, n_pe+8] aux -> MLP input [T, 2C + n_pe] in
+    block order, in the quads' dtype (corner reduction in f32)."""
+    def reduce(first):
+        acc = q2[:, first * C:(first + 1) * C].float() * aux2[:, n_pe + first, None]
+        for k in range(first + 1, first + 4):
+            acc = acc + q2[:, k * C:(k + 1) * C].float() * aux2[:, n_pe + k, None]
+        return acc
+
+    return torch.cat([reduce(0), reduce(4), aux2[:, :n_pe]], 1).to(q2.dtype)
+
+
+def _mlp(x: torch.Tensor, mp: MarchParams):
+    """[T, Fin] -> (rgb [T, 3], feat [T, cf], sigma [T]), f32. Weights are
+    rounded to x's dtype; products and sums in f32; hidden activations
+    rounded to x's dtype, as in the kernel."""
+    f, cdt = torch.float32, x.dtype
+
+    def w(t):
+        return t.to(cdt).to(f)
+
+    h = torch.relu(x.to(f) @ w(mp.w0).T + mp.b0).to(cdt)
+    h = torch.relu(h.to(f) @ w(mp.w1).T + mp.b1).to(cdt)
+    out = h.to(f) @ w(mp.wh).T + mp.bh
+    cf = mp.wr.shape[1]
+    feat, sigma = out[:, :cf], out[:, cf]
+    rgb = feat.to(cdt).to(f) @ w(mp.wr).T + mp.br
+    return rgb, feat, sigma
+
+
+def _alpha(sigma: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
+    return 1.0 - torch.exp(-torch.relu(sigma) * dists)
+
+
+def march_coarse_plain(quads: torch.Tensor, aux: torch.Tensor,
+                       dists: torch.Tensor, mp: MarchParams
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of the coarse kernel. Returns (rgbmap [R, 3+cf] f32 with
+    no background, weights [R, S] f32, keeps [R*S/2, cf+5] bf16)."""
+    R, S, qc = quads.shape
+    C, n_pe = qc // 8, aux.shape[-1] - 8
+    rgb, feat, sigma = _mlp(
+        _build_x(quads.reshape(R * S, qc), aux.reshape(R * S, -1), C, n_pe),
+        mp)
+    cf = feat.shape[-1]
+    rgb3, feat3, sig2 = rgb.view(R, S, 3), feat.view(R, S, cf), sigma.view(R, S)
+    alpha = _alpha(sig2, dists)
+    w = alpha * cumprod_exclusive(1.0 - alpha + 1e-10)
+    rgbmap = torch.cat([(w[..., None] * torch.sigmoid(rgb3)).sum(1),
+                        (w[..., None] * feat3).sum(1)], -1)
+    sig_k = sig2[:, ::2, None]
+    hi = sig_k.to(torch.bfloat16)
+    lo = (sig_k - hi.float()).to(torch.bfloat16)
+    keeps = torch.cat([feat3[:, ::2].to(torch.bfloat16),
+                       rgb3[:, ::2].to(torch.bfloat16), hi, lo], -1)
+    return rgbmap, w, keeps.reshape(R * (S // 2), cf + 5)
+
+
+def march_fine_plain(q_new: torch.Tensor, aux_new: torch.Tensor,
+                     keeps: torch.Tensor, d_concat: torch.Tensor,
+                     ranks: torch.Tensor, mp: MarchParams, num_keep: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the fine kernel. Returns (rgbmap [R, 3+cf] f32 with no
+    background, weights [R, Sk+Sn] f32 in concat order)."""
+    R, Sn, qc = q_new.shape
+    C, n_pe, Sk = qc // 8, aux_new.shape[-1] - 8, num_keep
+    rgb_n, feat_n, sig_n = _mlp(
+        _build_x(q_new.reshape(R * Sn, qc), aux_new.reshape(R * Sn, -1),
+                 C, n_pe), mp)
+    cf = feat_n.shape[-1]
+    k = keeps.view(R, Sk, cf + 5).float()
+    kfeat, krgb = k[..., :cf], k[..., cf:cf + 3]
+    sig = torch.cat([k[..., cf + 3] + k[..., cf + 4], sig_n.view(R, Sn)], 1)
+    alpha = _alpha(sig, d_concat)
+    om = 1.0 - alpha + 1e-10
+    before = ranks[:, :, None] < ranks[:, None, :]       # [R, j, i]
+    T = torch.where(before, om[:, :, None], torch.ones_like(om[:, :, None]))
+    w = alpha * T.prod(dim=1)
+    wk, wn = w[:, :Sk, None], w[:, Sk:, None]
+    rgb_map = ((wk * torch.sigmoid(krgb)).sum(1)
+               + (wn * torch.sigmoid(rgb_n.view(R, Sn, 3))).sum(1))
+    feat_map = (wk * kfeat).sum(1) + (wn * feat_n.view(R, Sn, cf)).sum(1)
+    return torch.cat([rgb_map, feat_map], -1), w
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """csrc/march.cu, built on first use, with its C signatures declared."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib = cuda_build.load("march")
+    lib.march_coarse.argtypes = [P] * 14 + [I] * 6 + [P]
+    lib.march_coarse.restype = I
+    lib.march_fine.argtypes = [P] * 15 + [I] * 7 + [P]
+    lib.march_fine.restype = I
+    lib.march_error_string.argtypes = [I]
+    lib.march_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+            device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_widths(S: int, C: int, n_pe: int, mp: MarchParams) -> None:
+    H, cf = mp.w0.shape[0], mp.wr.shape[1]
+    if H != 128 or cf != 64:
+        raise ValueError(f"the CUDA march kernels are built for hidden=128, "
+                         f"feat=64; got hidden={H}, feat={cf}")
+    if S <= 0 or 128 % S or C % 2 or (2 * C + n_pe) % 16:
+        raise ValueError(f"unsupported march widths: samples per ray {S} "
+                         f"must divide 128, C={C} must be even and "
+                         f"2C+n_pe={2 * C + n_pe} a multiple of 16")
+
+
+def _check_params(mp: MarchParams, C: int, n_pe: int,
+                  device: torch.device) -> None:
+    H, cf = mp.w0.shape[0], mp.wr.shape[1]
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, t, dt, shape in (
+            ("w0", mp.w0, bf, (H, 2 * C + n_pe)), ("b0", mp.b0, f32, (H,)),
+            ("w1", mp.w1, bf, (H, H)), ("b1", mp.b1, f32, (H,)),
+            ("wh", mp.wh, bf, (cf + 1, H)), ("bh", mp.bh, f32, (cf + 1,)),
+            ("wr", mp.wr, bf, (3, cf)), ("br", mp.br, f32, (3,))):
+        _expect(t, name, dt, shape, device)
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err:
+        msg = lib.march_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def _ptrs(*ts):
+    return [t.data_ptr() for t in ts]
+
+
+def march_coarse(quads: torch.Tensor, aux: torch.Tensor, dists: torch.Tensor,
+                 mp: MarchParams
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Coarse pass. quads [R, S, 8C] (bf16 on CUDA), aux [R, S, n_pe+8] f32,
+    dists [R, S] f32 (already scaled by |rd|). Returns (rgbmap [R, 3+cf] f32
+    with no background, weights [R, S] f32, keeps [R*S/2, cf+5] bf16)."""
+    if not quads.is_cuda:
+        return march_coarse_plain(quads, aux, dists, mp)
+    R, S, qc = quads.shape
+    C, n_pe = qc // 8, aux.shape[-1] - 8
+    H, cf = mp.w0.shape[0], mp.wr.shape[1]
+    dev = quads.device
+    _check_widths(S, C, n_pe, mp)
+    if S % 2:
+        raise ValueError(f"the coarse pass keeps every 2nd sample: S={S}")
+    _expect(quads, "quads", torch.bfloat16, (R, S, 8 * C), dev)
+    _expect(aux, "aux", torch.float32, (R, S, n_pe + 8), dev)
+    _expect(dists, "dists", torch.float32, (R, S), dev)
+    _check_params(mp, C, n_pe, dev)
+    rgbmap = torch.empty(R, 3 + cf, dtype=torch.float32, device=dev)
+    weights = torch.empty(R, S, dtype=torch.float32, device=dev)
+    keeps = torch.empty(R * (S // 2), cf + 5, dtype=torch.bfloat16,
+                        device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.march_coarse(
+            *_ptrs(quads, aux, dists, *mp, rgbmap, weights, keeps),
+            R, S, C, n_pe, H, cf, stream)
+    _raise_on(lib, err, "march_coarse")
+    march_coarse.launches += 1
+    return rgbmap, weights, keeps
+
+
+march_coarse.launches = 0
+
+
+def march_fine(q_new: torch.Tensor, aux_new: torch.Tensor,
+               keeps: torch.Tensor, d_concat: torch.Tensor,
+               ranks: torch.Tensor, mp: MarchParams, num_keep: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fine pass over keeps ++ new samples in concat order. q_new
+    [R, Sn, 8C] (bf16 on CUDA), aux_new [R, Sn, n_pe+8] f32, keeps
+    [R*Sk, cf+5] bf16 from ``march_coarse``, d_concat [R, Sa] f32 (each
+    element's sorted-neighbour delta times |rd|), ranks [R, Sa] int32 (each
+    element's sorted position). Returns (rgbmap [R, 3+cf] f32 with no
+    background, weights [R, Sa] f32 in concat order)."""
+    if not q_new.is_cuda:
+        return march_fine_plain(q_new, aux_new, keeps, d_concat, ranks, mp,
+                                num_keep)
+    R, Sn, qc = q_new.shape
+    C, n_pe, Sk = qc // 8, aux_new.shape[-1] - 8, int(num_keep)
+    Sa = Sk + Sn
+    H, cf = mp.w0.shape[0], mp.wr.shape[1]
+    dev = q_new.device
+    _check_widths(Sn, C, n_pe, mp)
+    _expect(q_new, "q_new", torch.bfloat16, (R, Sn, 8 * C), dev)
+    _expect(aux_new, "aux_new", torch.float32, (R, Sn, n_pe + 8), dev)
+    _expect(keeps, "keeps", torch.bfloat16, (R * Sk, cf + 5), dev)
+    _expect(d_concat, "d_concat", torch.float32, (R, Sa), dev)
+    _expect(ranks, "ranks", torch.int32, (R, Sa), dev)
+    _check_params(mp, C, n_pe, dev)
+    rgbmap = torch.empty(R, 3 + cf, dtype=torch.float32, device=dev)
+    weights = torch.empty(R, Sa, dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.march_fine(
+            *_ptrs(q_new, aux_new, keeps, d_concat, ranks, *mp, rgbmap,
+                   weights), R, Sn, Sk, C, n_pe, H, cf, stream)
+    _raise_on(lib, err, "march_fine")
+    march_fine.launches += 1
+    return rgbmap, weights
+
+
+march_fine.launches = 0
