@@ -1,1 +1,1 @@
-"""Weights from the JAX package into the port."""
+"""Weights into the port: from JAX variables and from .pt checkpoints."""

@@ -13,8 +13,9 @@ reference PyTorch names and layouts:
   init_lc [1, 1, 1, 1, C]          -> [1, C, 1, 1, 1]
   EqualLinear weights stay divided by lr_mul.
 
-Covers the renderer (field MLP, both plane generators, the skinning volume
-decoder and its ``init_lc`` buffer), ``StyleUNetSR``, and the flat
+Covers the renderer (field MLP, the plane generators of all three
+``enc_mode``s, the skinning volume decoder and its ``init_lc`` buffer),
+``StyleUNetSR``, and the flat
 ``field.*`` / ``skin.*`` keys of ``tests/golden/render_production.npz``.
 """
 
@@ -109,6 +110,40 @@ def _generator(tree: Mapping, prefix: str) -> StateDict:
     return sd
 
 
+def _two_head_generator(tree: Mapping, prefix: str) -> StateDict:
+    """TwoHeadPlaneGenerator params -> state_dict entries; the second
+    head's modules carry the reference's suffix ``1``."""
+    p = f"{prefix}." if prefix else ""
+    sd: StateDict = {}
+    for key, sub in tree.items():
+        m = re.fullmatch(r"(conv_in|conv_out)([01])"
+                         r"|(cond_conv|comb_conv)([01])_(\d+)"
+                         r"|head([01])_conv(\d+)", key)
+        if key in ("style", "input", "conv_first") or re.fullmatch(
+                r"conv\d+", key):
+            sd.update(_generator({key: sub}, prefix))
+        elif m is None:
+            raise KeyError(f"no port counterpart for generator key {key!r}")
+        elif m.group(1):
+            sfx = "1" if m.group(2) == "1" else ""
+            sd.update(_conv_layer(sub, f"{p}{m.group(1)}{sfx}",
+                                  downsample=m.group(1) == "conv_in"))
+        elif m.group(3) == "cond_conv":
+            sfx = "1" if m.group(4) == "1" else ""
+            for c, down in (("conv1", False), ("conv2", True)):
+                sd.update(_conv_layer(
+                    sub[c], f"{p}cond_convs{sfx}.{m.group(5)}.{c}",
+                    downsample=down))
+        elif m.group(3) == "comb_conv":
+            sfx = "1" if m.group(4) == "1" else ""
+            sd.update(_conv_layer(sub, f"{p}comb_convs{sfx}.{m.group(5)}",
+                                  downsample=False))
+        else:
+            sfx = "1" if m.group(6) == "1" else ""
+            sd.update(_styled_conv(sub, f"{p}convs_head{sfx}.{m.group(7)}"))
+    return sd
+
+
 def _volume_decoder(params: Mapping, buffers: Mapping,
                     prefix: str) -> StateDict:
     sd: StateDict = {}
@@ -137,7 +172,8 @@ def renderer_state_dict(variables: Mapping) -> StateDict:
     field = params.get("field", {})
     for key, sub in field.items():
         if key in ("XY_gen", "YZ_gen"):
-            sd.update(_generator(sub, f"model_coarse.{key}"))
+            conv = _two_head_generator if "conv_in0" in sub else _generator
+            sd.update(conv(sub, f"model_coarse.{key}"))
         elif key in ("layer0", "layer1"):
             sd.update(_linear(sub, f"model_coarse.layers_xyz.{key[-1]}",
                               weight="kernel"))

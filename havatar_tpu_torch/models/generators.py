@@ -1,10 +1,12 @@
 """Condition-plane generator and StyleUNet super-resolution generator.
 
 Port of ``havatar_tpu/models/generators.py`` (``StyleMLP``,
-``PlaneGenerator``, ``StyleUNetSR``), NCHW inside, with the reference
-``state_dict`` names (``style.{i}``, ``conv_in``, ``from_rgbs``,
-``cond_convs``, ``comb_convs``, ``input``, ``conv1``, ``convs``,
-``to_rgbs``, ``conv_out``). Zero noise, one style per call (no mixing).
+``PlaneGenerator``, ``TwoHeadPlaneGenerator``, ``StyleUNetSR``), NCHW
+inside, with the reference ``state_dict`` names (``style.{i}``, ``conv_in``,
+``from_rgbs``, ``cond_convs``, ``comb_convs``, ``input``, ``conv1``,
+``convs``, ``to_rgbs``, ``conv_out``; the two-head generator's second head
+carries the suffix ``1``: ``conv_in1``, ``cond_convs1``, ``comb_convs1``,
+``convs_head1``, ``conv_out1``). Zero noise, one style per call (no mixing).
 
 ``compute_dtype`` is the dtype the convolutions run in (bfloat16 for the
 GPU frame); parameters stay float32.
@@ -144,6 +146,109 @@ class PlaneGenerator(_CondEncoder):
             out = self.convs[2 * k](out, w)
             out = self.convs[2 * k + 1](out, w)
         return self.conv_out(out)
+
+
+class TwoHeadPlaneGenerator(nn.Module):
+    """One latent-driven trunk up to ``split_size``, then two heads that
+    each inject their own condition encoder's features and upsample to
+    ``out_size`` (reference ``StyleGAN_zxc_twoHead`` with no_skip and zero
+    noise; its per-head FromRGB pyramids are never called and are not built).
+
+    forward(styles [B, style_dim], cond_front [B, inp_ch[0], S, S],
+            cond_side [B, inp_ch[1], S, S])
+      -> (plane0, plane1), each [B, out_ch, out_size, out_size].
+    """
+
+    def __init__(self, out_ch: int, out_size: int = 128, style_dim: int = 44,
+                 mlp_dim: int = 32, n_mlp: int = 4, middle_size: int = 8,
+                 split_size: int = 32, inp_size: int = 256,
+                 inp_ch=(7, 13), channel_multiplier: int = 2,
+                 lr_mlp: float = 0.01,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if out_size <= split_size:
+            raise ValueError(
+                f"TwoHeadPlaneGenerator: out_size ({out_size}) must exceed "
+                f"split_size ({split_size}) or the per-plane heads are empty "
+                f"and the condition images have no effect")
+        if inp_size // 2 < split_size:
+            raise ValueError(
+                f"TwoHeadPlaneGenerator: inp_size ({inp_size}) must be >= "
+                f"2*split_size ({2 * split_size}) for a non-empty condition "
+                f"encoder")
+        ch = channel_map(channel_multiplier)
+        self.compute_dtype = compute_dtype
+        log_size, mid_log = int(math.log2(out_size)), int(math.log2(middle_size))
+        split_log = int(math.log2(split_size))
+        self.style = StyleMLP(style_dim, mlp_dim, n_mlp, lr_mlp)
+        self.input = ConstantInput(ch[middle_size], size=middle_size)
+        self.conv1 = StyledConv(ch[middle_size], ch[middle_size], 3, mlp_dim)
+        self.convs = nn.ModuleList()
+        in_channel = ch[middle_size]
+        for res_log in range(mid_log + 1, split_log + 1):
+            out_channel = ch[2 ** res_log]
+            self.convs.append(StyledConv(in_channel, out_channel, 3, mlp_dim,
+                                         upsample=True))
+            self.convs.append(StyledConv(out_channel, out_channel, 3,
+                                         mlp_dim))
+            in_channel = out_channel
+        trunk_channel = in_channel
+        enc_stages = range(int(math.log2(inp_size)) - 2, split_log - 1, -1)
+        self.inject = []      # the same plan for both heads
+        for k, sfx in enumerate(("", "1")):
+            in_channel = ch[inp_size // 2]
+            conv_in = ConvLayer(inp_ch[k], in_channel, 3, downsample=True)
+            cond_convs = nn.ModuleList()
+            comb_channels = [in_channel]
+            for i in enc_stages:
+                cond_convs.append(ConvBlock(in_channel, ch[2 ** i]))
+                comb_channels.append(ch[2 ** i])
+                in_channel = ch[2 ** i]
+            comb_convs, convs_head = nn.ModuleDict(), nn.ModuleList()
+            in_channel, inject = trunk_channel, []
+            for stage, res_log in enumerate(range(split_log + 1,
+                                                  log_size + 1)):
+                out_channel = ch[2 ** res_log]
+                ci = len(comb_channels) - 1 - stage
+                comb_convs[str(ci)] = ConvLayer(
+                    in_channel + comb_channels[ci], comb_channels[ci], 3)
+                convs_head.append(StyledConv(comb_channels[ci], out_channel,
+                                             3, mlp_dim, upsample=True))
+                convs_head.append(StyledConv(out_channel, out_channel, 3,
+                                             mlp_dim))
+                inject.append(ci)
+                in_channel = out_channel
+            self.inject = inject
+            setattr(self, f"conv_in{sfx}", conv_in)
+            setattr(self, f"cond_convs{sfx}", cond_convs)
+            setattr(self, f"comb_convs{sfx}", comb_convs)
+            setattr(self, f"convs_head{sfx}", convs_head)
+            setattr(self, f"conv_out{sfx}", ConvLayer(in_channel, out_ch, 1))
+
+    def forward(self, styles: torch.Tensor, cond_front: torch.Tensor,
+                cond_side: torch.Tensor):
+        cdt = self.compute_dtype
+        w = self.style(styles.to(cdt))
+        out = self.conv1(self.input(cond_front.shape[0]).to(cdt), w)
+        for conv in self.convs:
+            out = conv(out, w)
+        trunk_out, planes = out, []
+        for sfx, cond in (("", cond_front), ("1", cond_side)):
+            cond_out = getattr(self, f"conv_in{sfx}")(cond.to(cdt))
+            cond_list = [cond_out]
+            for cond_conv in getattr(self, f"cond_convs{sfx}"):
+                cond_out = cond_conv(cond_out)
+                cond_list.append(cond_out)
+            comb_convs = getattr(self, f"comb_convs{sfx}")
+            convs_head = getattr(self, f"convs_head{sfx}")
+            out = trunk_out
+            for stage, ci in enumerate(self.inject):
+                out = comb_convs[str(ci)](
+                    torch.cat([out, cond_list[ci]], dim=1))
+                out = convs_head[2 * stage](out, w)
+                out = convs_head[2 * stage + 1](out, w)
+            planes.append(getattr(self, f"conv_out{sfx}")(out))
+        return planes[0], planes[1]
 
 
 class StyleUNetSR(_CondEncoder):

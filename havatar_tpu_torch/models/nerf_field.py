@@ -1,11 +1,20 @@
-"""Facial-model-conditioned double-plane NeRF field, 'split' enc_mode.
+"""Facial-model-conditioned double-plane NeRF field.
 
-Port of ``havatar_tpu/models/nerf_field.py`` as the fused march uses it:
-``generate_planes`` (two PlaneGenerators: XY from the front condition, ZY
-from the horizontally flipped left condition without its mask channel ++ the
-right condition), ``field_inputs_quad`` (raw corner rows + posenc + corner
-weights for the march kernels) and the five dense layers, whose weights the
-kernels take through ``march_params``.
+Port of ``havatar_tpu/models/nerf_field.py``: ``generate_planes`` in its
+three ``enc_mode``s ('split': two PlaneGenerators, XY from the front
+condition, ZY from the horizontally flipped left condition without its mask
+channel ++ the right condition; 'shared_backbone': one double-width
+PlaneGenerator over all three, planes split on channels; 'two_head': a
+TwoHeadPlaneGenerator), the three ways a renderer feeds the five dense
+layers:
+
+* ``forward``: plane features ++ posenc through the plain dense chain
+  (sh_deg = 0), the exact renderer's field evaluation;
+* ``field_inputs``: that chain's input alone, [B, N, 2C + posenc] in the
+  compute dtype and the reference's interleaved channel order, for the
+  reduced-input march kernels (``march_params(dtype, permute=False)``);
+* ``field_inputs_quad``: raw corner rows + posenc + corner weights for the
+  quad march kernels (``march_params(dtype)``).
 
 State_dict names follow the reference: ``XY_gen``, ``YZ_gen``,
 ``layers_xyz.{0,1}``, ``fc_alpha``, ``fc_rgbFeat``, ``fc_rgb``.
@@ -13,15 +22,22 @@ State_dict names follow the reference: ``XY_gen``, ``YZ_gen``,
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from havatar_tpu_torch.models.generators import PlaneGenerator
+from havatar_tpu_torch.models.generators import (
+    PlaneGenerator,
+    TwoHeadPlaneGenerator,
+)
 from havatar_tpu_torch.ops.boxwarp import BoxWarp
 from havatar_tpu_torch.ops.embedding import positional_encoding, posenc_dim
-from havatar_tpu_torch.ops.grid_sample import grid_sample_2d_quad
+from havatar_tpu_torch.ops.grid_sample import (
+    grid_sample_2d_quad,
+    sample_from_triplane,
+)
 from havatar_tpu_torch.ops.march import MarchParams, march_params
 
 
@@ -30,16 +46,32 @@ class DoublePlaneNeRFField(nn.Module):
                  num_encoding_fn_xyz: int = 8, latent_code_dim: int = 44,
                  plane_feat_dim: int = 64, plane_res: int = 128,
                  cond_res: int = 256, plane_middle_size: int = 16,
-                 hidden: int = 128, feat_dim: int = 64,
+                 enc_mode: str = "split", hidden: int = 128,
+                 feat_dim: int = 64,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_encoding_fn_xyz = num_encoding_fn_xyz
         self.plane_feat_dim = plane_feat_dim
-        gen = dict(out_ch=plane_feat_dim, out_size=plane_res,
-                   style_dim=latent_code_dim, middle_size=plane_middle_size,
+        self.enc_mode = enc_mode
+        self.compute_dtype = compute_dtype
+        gen = dict(out_size=plane_res, style_dim=latent_code_dim,
                    inp_size=cond_res, n_mlp=4, compute_dtype=compute_dtype)
-        self.XY_gen = PlaneGenerator(inp_ch=7, **gen)
-        self.YZ_gen = PlaneGenerator(inp_ch=13, **gen)
+        if enc_mode == "split":
+            self.XY_gen = PlaneGenerator(
+                out_ch=plane_feat_dim, middle_size=plane_middle_size,
+                inp_ch=7, **gen)
+            self.YZ_gen = PlaneGenerator(
+                out_ch=plane_feat_dim, middle_size=plane_middle_size,
+                inp_ch=13, **gen)
+        elif enc_mode == "shared_backbone":
+            self.XY_gen = PlaneGenerator(
+                out_ch=2 * plane_feat_dim, middle_size=16, inp_ch=20, **gen)
+        elif enc_mode == "two_head":
+            self.XY_gen = TwoHeadPlaneGenerator(
+                out_ch=plane_feat_dim, middle_size=8, split_size=32,
+                inp_ch=(7, 13), **gen)
+        else:
+            raise ValueError(f"unknown enc_mode {enc_mode!r}")
         self.gridwarper = BoxWarp.from_bounds(xyz_bounding)
         fin = 2 * plane_feat_dim + posenc_dim(num_encoding_fn_xyz)
         self.layers_xyz = nn.ModuleList(
@@ -60,9 +92,32 @@ class DoublePlaneNeRFField(nn.Module):
         def nchw(t):
             return t.permute(0, 3, 1, 2)
 
-        xy = self.XY_gen(z, nchw(front_cond))
-        zy = self.YZ_gen(z, nchw(torch.cat([left, right_cond], -1)))
+        side = nchw(torch.cat([left, right_cond], -1))
+        if self.enc_mode == "shared_backbone":
+            both = self.XY_gen(z, torch.cat([nchw(front_cond), side], 1))
+            xy, zy = both.split(self.plane_feat_dim, dim=1)
+        elif self.enc_mode == "two_head":
+            xy, zy = self.XY_gen(z, nchw(front_cond), side)
+        else:
+            xy = self.XY_gen(z, nchw(front_cond))
+            zy = self.YZ_gen(z, side)
         return torch.stack([xy, zy], 0).permute(0, 1, 3, 4, 2).contiguous()
+
+    def sample_plane_features(self, pts: torch.Tensor,
+                              planes: torch.Tensor) -> torch.Tensor:
+        """[B, N, 3] x [2, B, R, R, C] -> [B, N, 2C] in the planes' dtype,
+        channel order the reference's: feature index = 2c + p."""
+        feats = sample_from_triplane(self.gridwarper(pts), planes)
+        return feats.reshape(feats.shape[0], feats.shape[1], -1)
+
+    def field_inputs(self, pts: torch.Tensor,
+                     planes: torch.Tensor) -> torch.Tensor:
+        """[B, N, 3] canonical points -> the dense chain's input (plane
+        features ++ posenc) [B, N, 2C + posenc] in the compute dtype."""
+        cdt = self.compute_dtype
+        pe = positional_encoding(pts, self.num_encoding_fn_xyz)
+        return torch.cat([self.sample_plane_features(pts, planes).to(cdt),
+                          pe.to(cdt)], -1)
 
     def field_inputs_quad(self, pts: torch.Tensor, planes: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,8 +131,30 @@ class DoublePlaneNeRFField(nn.Module):
         return (torch.cat([rows_xy, rows_zy], -1),
                 torch.cat([pe.float(), w_xy, w_zy], -1))
 
-    def march_params(self, dtype: torch.dtype) -> MarchParams:
-        """The five dense layers as the march kernels take them."""
+    def march_params(self, dtype: torch.dtype,
+                     permute: bool = True) -> MarchParams:
+        """The five dense layers as the march kernels take them: layer0 in
+        block order for the quad kernels, ``permute=False`` for the kernels
+        that take ``field_inputs``."""
         return march_params(self.layers_xyz, self.fc_rgbFeat, self.fc_alpha,
                             self.fc_rgb, self.plane_feat_dim,
-                            posenc_dim(self.num_encoding_fn_xyz), dtype)
+                            posenc_dim(self.num_encoding_fn_xyz), dtype,
+                            permute=permute)
+
+    def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
+                planes: torch.Tensor) -> torch.Tensor:
+        """[B, N, 3] canonical points -> radiance [B, N, 3 + feat + 1] f32
+        (rgb, features, sigma). ``viewdirs`` is unused (sh_deg = 0). The
+        dense layers run in the compute dtype."""
+        cdt = self.compute_dtype
+
+        def dense(lin, x):
+            return F.linear(x, lin.weight.to(cdt), lin.bias.to(cdt))
+
+        x = self.field_inputs(pts, planes)
+        x = torch.relu(dense(self.layers_xyz[0], x))
+        x = torch.relu(dense(self.layers_xyz[1], x))
+        alpha = dense(self.fc_alpha, x).float()
+        feat = dense(self.fc_rgbFeat, x)
+        rgb = dense(self.fc_rgb, feat).float()
+        return torch.cat([rgb, feat.float(), alpha], -1)

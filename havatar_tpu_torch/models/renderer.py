@@ -1,11 +1,30 @@
-"""The avatar renderer on the fused deterministic march.
+"""The avatar renderer: conditioned double-plane field + skinning + two-pass
+(coarse/fine) volume rendering, on its deterministic inference paths.
 
-Port of ``havatar_tpu/models/renderer.py``'s ``AvatarRenderer`` on its
-inference path (``_render_rays_fused``, ``render_rays`` with perturb and
-noise off): stratified-linspace coarse samples, skinning, plane gathers,
-the coarse march kernel, deterministic inverse-CDF fine samples merged with
-every 2nd coarse depth by comparison-count ranks, and the fine march kernel
-compositing keeps ++ new samples in concat order.
+Port of ``havatar_tpu/models/renderer.py``'s ``AvatarRenderer``. Its three
+inference configurations sit behind two constructor switches:
+
+=================  ================  ======================================
+``use_fused_march``  ``use_quad_march``  ``render_rays`` runs
+=================  ================  ======================================
+False (default)    (ignored)         the exact path: the field's plain dense
+                                     chain and ``volume_render_radiance_field``
+                                     in the compute dtype (float32 for the
+                                     parity tests). JAX: the XLA path.
+True               True (default)    the fused march on raw corner rows:
+                                     ``march_coarse`` / ``march_fine``. JAX:
+                                     ``use_pallas_march``, ``use_pallas_quad``.
+True               False             the fused march on the reduced MLP
+                                     input: ``march_coarse_x`` /
+                                     ``march_fine_x``. JAX: ``use_pallas_march``
+                                     with ``use_pallas_quad=False``.
+=================  ================  ======================================
+
+All three: stratified-linspace coarse samples, skinning, plane sampling, a
+coarse pass, deterministic inverse-CDF fine samples merged with every 2nd
+coarse depth by comparison-count ranks, and a fine pass that reuses the
+coarse radiance at the kept depths. The stochastic branches (perturbed
+samples, sigma noise, an rng) belong to training and raise here.
 
 State_dict names follow the reference ``Trainer``: ``model_coarse.*`` (the
 field) and ``headpose_skin_net.canonical_Wvolume.*`` (the volume decoder).
@@ -21,16 +40,36 @@ import torch.nn as nn
 from havatar_tpu_torch.models.nerf_field import DoublePlaneNeRFField
 from havatar_tpu_torch.models.skinning import SkinningField
 from havatar_tpu_torch.ops.boxwarp import get_box_warp_param
-from havatar_tpu_torch.ops.march import march_coarse, march_fine
-from havatar_tpu_torch.ops.volume_render import sample_pdf
+from havatar_tpu_torch.ops.march import (
+    march_coarse,
+    march_coarse_x,
+    march_fine,
+    march_fine_x,
+)
+from havatar_tpu_torch.ops.volume_render import (
+    sample_pdf,
+    volume_render_radiance_field,
+)
+
+
+def _merge_ranks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sorted positions of concat(a, b) for two ascending lists [R, Na],
+    [R, Nb], by comparison counts; the < / <= tie rule is a stable sort of
+    the concat. Returns [R, Na + Nb] int64."""
+    pos_a = (torch.arange(a.shape[-1], device=a.device)
+             + (b[:, None, :] < a[:, :, None]).sum(-1))
+    pos_b = (torch.arange(b.shape[-1], device=b.device)
+             + (a[:, :, None] <= b[:, None, :]).sum(1))
+    return torch.cat([pos_a, pos_b], -1)
 
 
 class AvatarRenderer(nn.Module):
     """Field + skinning + two-pass volume rendering.
 
-    ``compute_dtype`` is the dtype of the plane generators, of the skinning
-    volume's samples and of the MLP inputs of the march (bfloat16 for the
-    GPU frame: the CUDA kernels take bf16 corner rows). Geometry,
+    ``compute_dtype`` is the dtype of the plane generators, of the field's
+    dense chain or the march kernels' MLP inputs, and (unless
+    ``skin_compute_dtype`` overrides it) of the skinning volume's samples:
+    bfloat16 for the GPU frame (the CUDA kernels take bf16). Geometry,
     compositing and sampling stay float32.
     """
 
@@ -38,22 +77,30 @@ class AvatarRenderer(nn.Module):
                  latent_code_dim: int = 32, cond_pose: bool = True,
                  num_encoding_fn_xyz: int = 8, plane_feat_dim: int = 64,
                  plane_res: int = 128, cond_res: int = 256,
-                 plane_middle_size: int = 16, feat_dim: int = 64,
-                 render_size: int = 128, skin_vol_res: int = 64,
-                 compute_dtype: torch.dtype = torch.float32):
+                 plane_middle_size: int = 16, enc_mode: str = "split",
+                 feat_dim: int = 64, render_size: int = 128,
+                 skin_vol_res: int = 64,
+                 compute_dtype: torch.dtype = torch.float32,
+                 skin_compute_dtype: Optional[torch.dtype] = None,
+                 use_fused_march: bool = False,
+                 use_quad_march: bool = True):
         super().__init__()
         self.xyz_bounding = tuple(tuple(float(v) for v in b)
                                   for b in xyz_bounding)
         self.plane_res = plane_res
         self.render_size = render_size
         self.compute_dtype = compute_dtype
+        self.skin_compute_dtype = skin_compute_dtype or compute_dtype
+        self.use_fused_march = use_fused_march
+        self.use_quad_march = use_quad_march
         self.model_coarse = DoublePlaneNeRFField(
             xyz_bounding=self.xyz_bounding,
             num_encoding_fn_xyz=num_encoding_fn_xyz,
             latent_code_dim=latent_code_dim + (12 if cond_pose else 0),
             plane_feat_dim=plane_feat_dim, plane_res=plane_res,
             cond_res=cond_res, plane_middle_size=plane_middle_size,
-            feat_dim=feat_dim, compute_dtype=compute_dtype)
+            enc_mode=enc_mode, feat_dim=feat_dim,
+            compute_dtype=compute_dtype)
         # skinning box: the field box with Y_lo = 0.3 * Y_hi
         xb, yb, zb = [list(b) for b in self.xyz_bounding]
         yb[0] = 0.3 * yb[1]
@@ -74,34 +121,126 @@ class AvatarRenderer(nn.Module):
         """The decoded canonical weight volume [1, 2, D, H, W]."""
         return self.headpose_skin_net.volume()
 
+    def _canonical(self, pts: torch.Tensor, inv_head_T: torch.Tensor,
+                   skin_vol: torch.Tensor) -> torch.Tensor:
+        """[B, R, S, 3] world points -> canonical points [B, R*S, 3]."""
+        b, r, s = pts.shape[:3]
+        return self.headpose_skin_net(pts.reshape(b, r * s, 3), inv_head_T,
+                                      skin_vol, dtype=self.skin_compute_dtype)
+
+    def _field_eval(self, pts: torch.Tensor, inv_head_T: torch.Tensor,
+                    planes: torch.Tensor,
+                    skin_vol: torch.Tensor) -> torch.Tensor:
+        """[B, R, S, 3] world points -> radiance [B*R, S, C+1] through the
+        field's plain dense chain."""
+        b, r, s = pts.shape[:3]
+        can = self._canonical(pts, inv_head_T, skin_vol)
+        return self.model_coarse(can, None, planes).reshape(b * r, s, -1)
+
     def _march_inputs(self, pts: torch.Tensor, inv_head_T: torch.Tensor,
                       planes: torch.Tensor, skin_vol: torch.Tensor):
-        """[B, R, S, 3] world points -> (quads [B*R, S, 8C], aux
-        [B*R, S, posenc+8]) for the march kernels."""
+        """[B, R, S, 3] world points -> the march kernels' input stage as a
+        tuple: (quads [B*R, S, 8C], aux [B*R, S, posenc+8]) for the quad
+        kernels, (x [B*R, S, 2C+posenc],) for the reduced-input kernels."""
         b, r, s = pts.shape[:3]
-        can = self.headpose_skin_net(pts.reshape(b, r * s, 3), inv_head_T,
-                                     skin_vol, dtype=self.compute_dtype)
-        quads, aux = self.model_coarse.field_inputs_quad(can, planes)
-        return (quads.reshape(b * r, s, quads.shape[-1]),
-                aux.reshape(b * r, s, aux.shape[-1]))
+        can = self._canonical(pts, inv_head_T, skin_vol)
+        if self.use_quad_march:
+            xs = self.model_coarse.field_inputs_quad(can, planes)
+        else:
+            xs = (self.model_coarse.field_inputs(can, planes),)
+        return tuple(x.reshape(b * r, s, x.shape[-1]) for x in xs)
 
     def render_rays(self, planes: torch.Tensor, ray_batch: torch.Tensor,
                     background_prior: torch.Tensor, inv_head_T: torch.Tensor,
                     *, num_coarse: int = 64, num_fine: int = 16,
+                    perturb: bool = False,
+                    radiance_field_noise_std: float = 0.0, rng=None,
                     fixed_volume: Optional[torch.Tensor] = None
                     ) -> Dict[str, Optional[torch.Tensor]]:
         """planes [2, B, R', R', C]; ray_batch [B, R, 8] (o, d, near, far);
-        background_prior [B, R, 3]; inv_head_T [B, 4, 3]. The quads take the
-        planes' dtype. Returns the JAX renderer's output dict."""
+        background_prior [B, R, 3]; inv_head_T [B, 4, 3]. Returns the JAX
+        renderer's output dict. Only the deterministic march is ported:
+        ``perturb``, sigma noise or an ``rng`` raise."""
+        if perturb or radiance_field_noise_std != 0.0 or rng is not None:
+            raise NotImplementedError(
+                "perturbed samples, sigma noise and an rng are the "
+                "stochastic branches of render_rays; they come with the "
+                "training port. Inference passes perturb=False, "
+                "radiance_field_noise_std=0.0, rng=None.")
         skin_vol = self.skin_volume() if fixed_volume is None else fixed_volume
-        B, R = ray_batch.shape[:2]
+        args = (planes, ray_batch, background_prior, inv_head_T, num_coarse,
+                num_fine, skin_vol)
+        if self.use_fused_march:
+            return self._render_rays_fused(*args)
+        return self._render_rays_exact(*args)
+
+    @staticmethod
+    def _coarse_depths(ray_batch: torch.Tensor, num_coarse: int):
         ro, rd = ray_batch[..., 0:3], ray_batch[..., 3:6]
         near, far = ray_batch[..., 6:7], ray_batch[..., 7:8]
         t_vals = torch.linspace(0.0, 1.0, num_coarse, dtype=ro.dtype,
                                 device=ro.device)
         z_vals = near * (1.0 - t_vals) + far * t_vals          # [B, R, S]
         pts = ro[..., None, :] + rd[..., None, :] * z_vals[..., :, None]
-        quads, aux = self._march_inputs(pts, inv_head_T, planes, skin_vol)
+        return ro, rd, z_vals, pts
+
+    def _render_rays_exact(self, planes, ray_batch, background_prior,
+                           inv_head_T, num_coarse, num_fine, skin_vol):
+        """The field's dense chain on every sample, then
+        ``volume_render_radiance_field``; the fine pass evaluates only the
+        new samples and reuses the coarse radiance at the kept depths (the
+        field is a function of the point alone)."""
+        B, R = ray_batch.shape[:2]
+        ro, rd, z_vals, pts = self._coarse_depths(ray_batch, num_coarse)
+        radiance = self._field_eval(pts, inv_head_T, planes, skin_vol)
+        zf = z_vals.reshape(B * R, num_coarse)
+        rdf = rd.reshape(B * R, 3)
+        bgf = background_prior.reshape(B * R, 3)
+        rgb_c, _, acc_c, weights, depth_c = volume_render_radiance_field(
+            radiance, zf, rdf, background_prior=bgf)
+        out: Dict[str, Optional[torch.Tensor]] = {
+            "rgb_coarse": rgb_c.reshape(B, R, -1),
+            "depth_coarse": depth_c.reshape(B, R, 1),
+            "acc_coarse": acc_c.reshape(B, R, 1),
+            "weights_max": weights.amax(-1).reshape(B, R, 1),
+            "rgb_fine": None, "depth_fine": None, "acc_fine": None,
+        }
+        if num_fine == 0:
+            return out
+
+        z_mid = 0.5 * (zf[..., 1:] + zf[..., :-1])
+        z_samples = sample_pdf(z_mid, weights[..., 1:-1], num_fine).detach()
+        z_keep, rad_keep = zf[:, ::2], radiance[:, ::2]
+        ranks = _merge_ranks(z_keep, z_samples)
+        z_new = z_samples.reshape(B, R, num_fine)
+        pts_new = ro[..., None, :] + rd[..., None, :] * z_new[..., :, None]
+        rad_new = self._field_eval(pts_new, inv_head_T, planes, skin_vol)
+        # reorder depths and radiance by rank (a scatter; the JAX package
+        # contracts with rank one-hots, which selects the same values)
+        z_cat = torch.cat([z_keep, z_samples], -1)
+        rad_cat = torch.cat([rad_keep, rad_new], 1)
+        z_all = torch.empty_like(z_cat).scatter_(1, ranks, z_cat)
+        radiance_f = torch.empty_like(rad_cat).scatter_(
+            1, ranks[..., None].expand_as(rad_cat), rad_cat)
+        rgb_f, _, acc_f, weights_f, depth_f = volume_render_radiance_field(
+            radiance_f, z_all, rdf, background_prior=bgf)
+        out["rgb_fine"] = rgb_f.reshape(B, R, -1)
+        out["depth_fine"] = depth_f.reshape(B, R, 1)
+        out["acc_fine"] = acc_f.reshape(B, R, 1)
+        out["weights_max"] = weights_f.amax(-1).reshape(B, R, 1)
+        return out
+
+    def _render_rays_fused(self, planes, ray_batch, background_prior,
+                           inv_head_T, num_coarse, num_fine, skin_vol):
+        """Skinning + plane sampling + posenc build the kernels' input; the
+        field MLP and the compositing run in the march kernels, the fine one
+        compositing keeps ++ new samples in concat order."""
+        B, R = ray_batch.shape[:2]
+        quad = self.use_quad_march
+        coarse, fine = ((march_coarse, march_fine) if quad
+                        else (march_coarse_x, march_fine_x))
+        ro, rd, z_vals, pts = self._coarse_depths(ray_batch, num_coarse)
+        xs = self._march_inputs(pts, inv_head_T, planes, skin_vol)
 
         zf = z_vals.reshape(B * R, num_coarse)
         rd_norm = torch.linalg.norm(rd.reshape(B * R, 3), dim=-1,
@@ -109,8 +248,8 @@ class AvatarRenderer(nn.Module):
         d = torch.diff(zf, dim=-1)
         d = torch.cat([d, d[..., -1:]], -1) * rd_norm
 
-        mp = self.model_coarse.march_params(quads.dtype)
-        rgbmap, weights, keeps = march_coarse(quads, aux, d.float(), mp)
+        mp = self.model_coarse.march_params(xs[0].dtype, permute=quad)
+        rgbmap, weights, keeps = coarse(*xs, d.float(), mp)
         bgf = background_prior.reshape(B * R, 3)
 
         def finish(rgbmap, w, z):
@@ -129,18 +268,12 @@ class AvatarRenderer(nn.Module):
         if num_fine == 0:
             return out
 
-        # fine pass: deterministic inverse-CDF samples, merged with every
-        # 2nd coarse depth by comparison-count ranks (both lists ascend; the
-        # < / <= tie rule is a stable sort of the concat)
+        # only depths and dists are reordered here: the kernel composites
+        # in concat order by rank
         z_mid = 0.5 * (zf[..., 1:] + zf[..., :-1])
         z_samples = sample_pdf(z_mid, weights[..., 1:-1], num_fine)
-        a, b = zf[:, ::2], z_samples
-        pos_a = (torch.arange(a.shape[-1], device=a.device)
-                 + (b[:, None, :] < a[:, :, None]).sum(-1))
-        pos_b = (torch.arange(b.shape[-1], device=b.device)
-                 + (a[:, :, None] <= b[:, None, :]).sum(1))
-        ranks = torch.cat([pos_a, pos_b], -1)                  # [B*R, Sa]
-        z_cat = torch.cat([a, b], -1)
+        ranks = _merge_ranks(zf[:, ::2], z_samples)            # [B*R, Sa]
+        z_cat = torch.cat([zf[:, ::2], z_samples], -1)
         z_all = torch.empty_like(z_cat).scatter_(1, ranks, z_cat)
         d_sorted = torch.diff(z_all, dim=-1)
         d_sorted = torch.cat([d_sorted, d_sorted[..., -1:]], -1) * rd_norm
@@ -148,11 +281,10 @@ class AvatarRenderer(nn.Module):
 
         z_new = z_samples.reshape(B, R, num_fine)
         pts_new = ro[..., None, :] + rd[..., None, :] * z_new[..., :, None]
-        q_new, aux_new = self._march_inputs(pts_new, inv_head_T, planes,
-                                            skin_vol)
-        rgbmap_f, w_concat = march_fine(
-            q_new, aux_new, keeps, d_concat.float(),
-            ranks.to(torch.int32), mp, num_keep=num_coarse // 2)
+        xs_new = self._march_inputs(pts_new, inv_head_T, planes, skin_vol)
+        rgbmap_f, w_concat = fine(
+            *xs_new, keeps, d_concat.float(), ranks.to(torch.int32), mp,
+            num_keep=num_coarse // 2)
         (out["rgb_fine"], out["depth_fine"], out["acc_fine"],
          out["weights_max"]) = finish(rgbmap_f, w_concat, z_cat)
         return out
@@ -161,15 +293,47 @@ class AvatarRenderer(nn.Module):
                 latent_code: torch.Tensor, inv_head_T: torch.Tensor,
                 front_cond: torch.Tensor, left_cond: torch.Tensor,
                 right_cond: torch.Tensor, *, num_coarse: int = 64,
-                num_fine: int = 16,
+                num_fine: int = 16, perturb: bool = False,
+                radiance_field_noise_std: float = 0.0, rng=None,
                 fixed_volume: Optional[torch.Tensor] = None):
         B = ray_batch.shape[0]
         planes = self.model_coarse.generate_planes(
             latent_code, inv_head_T.reshape(B, -1), front_cond, left_cond,
             right_cond)
-        return self.render_rays(planes, ray_batch, background_prior,
-                                inv_head_T, num_coarse=num_coarse,
-                                num_fine=num_fine, fixed_volume=fixed_volume)
+        return self.render_rays(
+            planes, ray_batch, background_prior, inv_head_T,
+            num_coarse=num_coarse, num_fine=num_fine, perturb=perturb,
+            radiance_field_noise_std=radiance_field_noise_std, rng=rng,
+            fixed_volume=fixed_volume)
+
+    def render_chunked(self, ray_batch: torch.Tensor,
+                       background_prior: torch.Tensor,
+                       latent_code: torch.Tensor, inv_head_T: torch.Tensor,
+                       front_cond: torch.Tensor, left_cond: torch.Tensor,
+                       right_cond: torch.Tensor, *, chunk_size: int = 16384,
+                       num_coarse: int = 64, num_fine: int = 16,
+                       perturb: bool = False,
+                       radiance_field_noise_std: float = 0.0, rng=None,
+                       fixed_volume: Optional[torch.Tensor] = None):
+        """Memory-bounded rendering: planes and the skinning volume are made
+        once, then the ray axis goes through ``render_rays`` ``chunk_size``
+        rays at a time. Requires R % chunk_size == 0."""
+        B, R = ray_batch.shape[:2]
+        if R % chunk_size:
+            raise ValueError(f"R={R} is not a multiple of chunk_size="
+                             f"{chunk_size}; pad the rays")
+        planes = self.model_coarse.generate_planes(
+            latent_code, inv_head_T.reshape(B, -1), front_cond, left_cond,
+            right_cond)
+        skin_vol = self.skin_volume() if fixed_volume is None else fixed_volume
+        outs = [self.render_rays(
+            planes, ray_batch[:, i:i + chunk_size],
+            background_prior[:, i:i + chunk_size], inv_head_T,
+            num_coarse=num_coarse, num_fine=num_fine, perturb=perturb,
+            radiance_field_noise_std=radiance_field_noise_std, rng=rng,
+            fixed_volume=skin_vol) for i in range(0, R, chunk_size)]
+        return {k: None if v is None else torch.cat([o[k] for o in outs], 1)
+                for k, v in outs[0].items()}
 
     def render_full_image(self, *args, **kwargs
                           ) -> Tuple[torch.Tensor, torch.Tensor]:

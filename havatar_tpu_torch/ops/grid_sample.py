@@ -1,11 +1,14 @@
 """Bilinear / trilinear grid sampling with ``align_corners=True``.
 
-Port of the two samplers of ``havatar_tpu/ops/grid_sample.py`` that the
-reenactment frame uses:
+Port of the samplers of ``havatar_tpu/ops/grid_sample.py`` that rendering
+uses:
 
 * ``grid_sample_2d_quad``: the gather half of 2D ``zeros``-padding bilinear
   sampling. It returns each point's four raw corner rows [N, 4C] and its
-  corner weights [N, 4]; the march kernels do the corner reduction.
+  corner weights [N, 4]; the quad march kernels do the corner reduction.
+* ``grid_sample_2d``: the whole sampler, the gather plus an f32 corner
+  reduction rounded to the features' dtype; ``sample_from_triplane`` applies
+  it to each feature plane.
 * ``grid_sample_3d``: trilinear ``border``-padding sampling (skinning).
 
 Per-axis weights are computed against the *unclamped* floor index, so a
@@ -67,6 +70,31 @@ def grid_sample_2d_quad(feat: torch.Tensor, coords: torch.Tensor
     rows = flat[bidx, idx].reshape(B, N, 4 * C)
     w4 = torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], dim=-1)
     return rows, w4.float()
+
+
+def grid_sample_2d(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """feat [B, H, W, C], coords [B, N, 2] -> [B, N, C] in feat's dtype:
+    bilinear, zeros padding, align_corners (torch ``F.grid_sample`` on a
+    [B, N, 1, 2] grid). The four corners are summed in float32 and the sum
+    rounded to feat's dtype, which is where the quad march kernels round
+    their corner reduction too."""
+    rows, w4 = grid_sample_2d_quad(feat, coords)
+    C = feat.shape[-1]
+    acc = rows[..., :C].float() * w4[..., 0:1]
+    for k in range(1, 4):
+        acc = acc + rows[..., k * C:(k + 1) * C].float() * w4[..., k:k + 1]
+    return acc.to(feat.dtype)
+
+
+def sample_from_triplane(coords: torch.Tensor,
+                         planes: torch.Tensor) -> torch.Tensor:
+    """coords [B, N, 3] box-warped, planes [P, B, H, W, C] with P <= 3 ->
+    [B, N, C, P]. Plane 0 reads (x, y), plane 1 (z, y), plane 2 (x, z); each
+    plane has its top-left at (-1, -1). Zeros padding."""
+    axes = ((0, 1), (2, 1), (0, 2))[:planes.shape[0]]
+    return torch.stack(
+        [grid_sample_2d(planes[p], coords[..., list(ax)])
+         for p, ax in enumerate(axes)], dim=-1)
 
 
 def grid_sample_3d(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

@@ -1,21 +1,36 @@
 """The fused ray-march kernels: field MLP + alpha compositing per ray.
 
-Port of ``havatar_tpu/ops/pallas_march.py:fused_march_coarse_quad`` and
-``fused_march_fine_quad``. Each has
+Port of the four kernels of ``havatar_tpu/ops/pallas_march.py``:
 
-* a wrapper (``march_coarse``, ``march_fine``) that launches the CUDA kernel
-  of ``csrc/march.cu`` for CUDA tensors, counts its launches in
-  ``<wrapper>.launches``, and raises on any input the kernel does not take;
-* a plain PyTorch twin (``march_coarse_plain``, ``march_fine_plain``) of the
-  same function. The wrapper runs the twin only when it is given CPU
-  tensors; on a CUDA tensor it launches the kernel or raises.
+=================  ===========================  ==========================
+wrapper            TPU kernel                   input stage
+=================  ===========================  ==========================
+``march_coarse``   ``fused_march_coarse_quad``  raw corner rows, reduced
+``march_fine``     ``fused_march_fine_quad``    in the kernel
+``march_coarse_x`` ``fused_march_coarse``       the MLP input, already
+``march_fine_x``   ``fused_march_fine``         reduced
+=================  ===========================  ==========================
 
-Inputs, per sample: the raw bilinear corner rows of both planes,
-``quads [R, S, 8C]`` (XY quad row ++ ZY quad row, corner-major), and
-``aux [R, S, n_pe + 8]`` f32 (posenc ++ the 8 corner weights). Both kernels
-corner-reduce in f32, round the MLP input [xy | zy | posenc] to the compute
-dtype (the dtype of ``quads``), run the 5-layer field MLP with compute-dtype
-inputs and f32 accumulation, and composite with
+Each has
+
+* a wrapper that launches its own CUDA kernel of ``csrc/march.cu`` for CUDA
+  tensors, counts its launches in ``<wrapper>.launches``, and raises on any
+  input the kernel does not take;
+* a plain PyTorch twin (``<wrapper>_plain``) of the same function. The
+  wrapper runs the twin only when it is given CPU tensors; on a CUDA tensor
+  it launches the kernel or raises.
+
+Inputs of the quad pair, per sample: the raw bilinear corner rows of both
+planes, ``quads [R, S, 8C]`` (XY quad row ++ ZY quad row, corner-major), and
+``aux [R, S, n_pe + 8]`` f32 (posenc ++ the 8 corner weights). These kernels
+corner-reduce in f32 and round the MLP input [xy | zy | posenc] ("block"
+order, layer0's columns permuted to match) to the compute dtype (the dtype of
+``quads``). The ``_x`` pair takes that rounded MLP input itself,
+``x [R, S, 2C + n_pe]``, in the reference's "interleaved" order (plane
+feature 2c + p, then posenc) with layer0 as the checkpoint holds it.
+``MarchParams.order`` says which of the two a parameter set is for, and each
+wrapper and twin raises on the other. All four run the 5-layer field MLP with
+compute-dtype inputs and f32 accumulation, and composite with
 alpha = 1 - exp(-relu(sigma) * delta).
 
 The coarse pass also writes the "keeps": every 2nd sample's radiance packed
@@ -40,9 +55,11 @@ from havatar_tpu_torch.ops.volume_render import cumprod_exclusive
 class MarchParams(NamedTuple):
     """The field MLP as the kernels take it (torch Linear layout [out, in]).
 
-    w0's input columns are permuted from the reference's interleaved plane
-    channels (index 2c + p) to block order [xy (C) | zy (C) | posenc].
-    wh stacks fc_rgbFeat's rows (cf) and fc_alpha's row (1).
+    ``order`` names the channel order of w0's input columns: "block" is
+    [xy (C) | zy (C) | posenc], permuted from the reference for the kernels
+    that reduce corner rows; "interleaved" is the reference's own (plane
+    feature index 2c + p, then posenc) for the kernels that take the reduced
+    input. wh stacks fc_rgbFeat's rows (cf) and fc_alpha's row (1).
     """
     w0: torch.Tensor   # [H, 2C + n_pe]
     b0: torch.Tensor   # [H] f32
@@ -52,13 +69,28 @@ class MarchParams(NamedTuple):
     bh: torch.Tensor   # [cf + 1] f32
     wr: torch.Tensor   # [3, cf]
     br: torch.Tensor   # [3] f32
+    order: str = "block"
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(self[:8])
+
+    def to(self, device) -> "MarchParams":
+        return MarchParams(*(t.to(device) for t in self.tensors()),
+                           order=self.order)
 
 
 def march_params(layers_xyz, fc_rgbFeat, fc_alpha, fc_rgb, C: int,
-                 n_pe: int, dtype: torch.dtype) -> MarchParams:
-    """Field Linear modules -> MarchParams with weights in ``dtype``."""
-    perm = ([2 * c for c in range(C)] + [2 * c + 1 for c in range(C)]
-            + list(range(2 * C, 2 * C + n_pe)))
+                 n_pe: int, dtype: torch.dtype,
+                 permute: bool = True) -> MarchParams:
+    """Field Linear modules -> MarchParams with weights in ``dtype``:
+    layer0's columns in block order (``permute=True``, for ``march_coarse``
+    and ``march_fine``) or left interleaved (``permute=False``, for
+    ``march_coarse_x`` and ``march_fine_x``)."""
+    if permute:
+        perm = ([2 * c for c in range(C)] + [2 * c + 1 for c in range(C)]
+                + list(range(2 * C, 2 * C + n_pe)))
+    else:
+        perm = list(range(2 * C + n_pe))
     l0, l1 = layers_xyz
 
     def w(t):
@@ -71,7 +103,16 @@ def march_params(layers_xyz, fc_rgbFeat, fc_alpha, fc_rgb, C: int,
         w(l0.weight[:, perm]), b(l0.bias), w(l1.weight), b(l1.bias),
         w(torch.cat([fc_rgbFeat.weight, fc_alpha.weight], 0)),
         b(torch.cat([fc_rgbFeat.bias, fc_alpha.bias], 0)),
-        w(fc_rgb.weight), b(fc_rgb.bias))
+        w(fc_rgb.weight), b(fc_rgb.bias),
+        order="block" if permute else "interleaved")
+
+
+def _check_order(mp: MarchParams, order: str, who: str) -> None:
+    if mp.order != order:
+        raise ValueError(
+            f"{who} takes layer0 in {order} channel order, got MarchParams "
+            f"in {mp.order} order (march_params(..., permute="
+            f"{order == 'block'}))")
 
 
 # ---------------------------------------------------------------------------
@@ -118,11 +159,26 @@ def march_coarse_plain(quads: torch.Tensor, aux: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of the coarse kernel. Returns (rgbmap [R, 3+cf] f32 with
     no background, weights [R, S] f32, keeps [R*S/2, cf+5] bf16)."""
+    _check_order(mp, "block", "march_coarse")
     R, S, qc = quads.shape
     C, n_pe = qc // 8, aux.shape[-1] - 8
-    rgb, feat, sigma = _mlp(
-        _build_x(quads.reshape(R * S, qc), aux.reshape(R * S, -1), C, n_pe),
-        mp)
+    x = _build_x(quads.reshape(R * S, qc), aux.reshape(R * S, -1), C, n_pe)
+    return _coarse_composite(x, R, S, dists, mp)
+
+
+def march_coarse_x_plain(x: torch.Tensor, dists: torch.Tensor,
+                         mp: MarchParams
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of the reduced-input coarse kernel: x [R, S, fin] is the
+    MLP input in interleaved order. Returns as ``march_coarse_plain``."""
+    _check_order(mp, "interleaved", "march_coarse_x")
+    R, S, fin = x.shape
+    return _coarse_composite(x.reshape(R * S, fin), R, S, dists, mp)
+
+
+def _coarse_composite(x2: torch.Tensor, R: int, S: int, dists: torch.Tensor,
+                      mp: MarchParams):
+    rgb, feat, sigma = _mlp(x2, mp)
     cf = feat.shape[-1]
     rgb3, feat3, sig2 = rgb.view(R, S, 3), feat.view(R, S, cf), sigma.view(R, S)
     alpha = _alpha(sig2, dists)
@@ -143,11 +199,31 @@ def march_fine_plain(q_new: torch.Tensor, aux_new: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of the fine kernel. Returns (rgbmap [R, 3+cf] f32 with no
     background, weights [R, Sk+Sn] f32 in concat order)."""
+    _check_order(mp, "block", "march_fine")
     R, Sn, qc = q_new.shape
-    C, n_pe, Sk = qc // 8, aux_new.shape[-1] - 8, num_keep
-    rgb_n, feat_n, sig_n = _mlp(
-        _build_x(q_new.reshape(R * Sn, qc), aux_new.reshape(R * Sn, -1),
-                 C, n_pe), mp)
+    C, n_pe = qc // 8, aux_new.shape[-1] - 8
+    x = _build_x(q_new.reshape(R * Sn, qc), aux_new.reshape(R * Sn, -1),
+                 C, n_pe)
+    return _fine_composite(x, R, Sn, keeps, d_concat, ranks, mp, num_keep)
+
+
+def march_fine_x_plain(x_new: torch.Tensor, keeps: torch.Tensor,
+                       d_concat: torch.Tensor, ranks: torch.Tensor,
+                       mp: MarchParams, num_keep: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the reduced-input fine kernel: x_new [R, Sn, fin] is the
+    new samples' MLP input in interleaved order. Returns as
+    ``march_fine_plain``."""
+    _check_order(mp, "interleaved", "march_fine_x")
+    R, Sn, fin = x_new.shape
+    return _fine_composite(x_new.reshape(R * Sn, fin), R, Sn, keeps,
+                           d_concat, ranks, mp, num_keep)
+
+
+def _fine_composite(x2: torch.Tensor, R: int, Sn: int, keeps: torch.Tensor,
+                    d_concat: torch.Tensor, ranks: torch.Tensor,
+                    mp: MarchParams, Sk: int):
+    rgb_n, feat_n, sig_n = _mlp(x2, mp)
     cf = feat_n.shape[-1]
     k = keeps.view(R, Sk, cf + 5).float()
     kfeat, krgb = k[..., :cf], k[..., cf:cf + 3]
@@ -177,6 +253,10 @@ def _lib() -> ctypes.CDLL:
     lib.march_coarse.restype = I
     lib.march_fine.argtypes = [P] * 15 + [I] * 7 + [P]
     lib.march_fine.restype = I
+    lib.march_coarse_x.argtypes = [P] * 13 + [I] * 5 + [P]
+    lib.march_coarse_x.restype = I
+    lib.march_fine_x.argtypes = [P] * 14 + [I] * 6 + [P]
+    lib.march_fine_x.restype = I
     lib.march_error_string.argtypes = [I]
     lib.march_error_string.restype = ctypes.c_char_p
     return lib
@@ -195,23 +275,28 @@ def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _check_widths(S: int, C: int, n_pe: int, mp: MarchParams) -> None:
+def _check_x_widths(S: int, fin: int, mp: MarchParams) -> None:
     H, cf = mp.w0.shape[0], mp.wr.shape[1]
     if H != 128 or cf != 64:
         raise ValueError(f"the CUDA march kernels are built for hidden=128, "
                          f"feat=64; got hidden={H}, feat={cf}")
-    if S <= 0 or 128 % S or C % 2 or (2 * C + n_pe) % 16:
+    if S <= 0 or 128 % S or fin % 16:
         raise ValueError(f"unsupported march widths: samples per ray {S} "
-                         f"must divide 128, C={C} must be even and "
-                         f"2C+n_pe={2 * C + n_pe} a multiple of 16")
+                         f"must divide 128 and the MLP input width {fin} "
+                         f"be a multiple of 16")
 
 
-def _check_params(mp: MarchParams, C: int, n_pe: int,
-                  device: torch.device) -> None:
+def _check_widths(S: int, C: int, n_pe: int, mp: MarchParams) -> None:
+    if C % 2:
+        raise ValueError(f"unsupported march widths: C={C} must be even")
+    _check_x_widths(S, 2 * C + n_pe, mp)
+
+
+def _check_params(mp: MarchParams, fin: int, device: torch.device) -> None:
     H, cf = mp.w0.shape[0], mp.wr.shape[1]
     bf, f32 = torch.bfloat16, torch.float32
     for name, t, dt, shape in (
-            ("w0", mp.w0, bf, (H, 2 * C + n_pe)), ("b0", mp.b0, f32, (H,)),
+            ("w0", mp.w0, bf, (H, fin)), ("b0", mp.b0, f32, (H,)),
             ("w1", mp.w1, bf, (H, H)), ("b1", mp.b1, f32, (H,)),
             ("wh", mp.wh, bf, (cf + 1, H)), ("bh", mp.bh, f32, (cf + 1,)),
             ("wr", mp.wr, bf, (3, cf)), ("br", mp.br, f32, (3,))):
@@ -240,13 +325,14 @@ def march_coarse(quads: torch.Tensor, aux: torch.Tensor, dists: torch.Tensor,
     C, n_pe = qc // 8, aux.shape[-1] - 8
     H, cf = mp.w0.shape[0], mp.wr.shape[1]
     dev = quads.device
+    _check_order(mp, "block", "march_coarse")
     _check_widths(S, C, n_pe, mp)
     if S % 2:
         raise ValueError(f"the coarse pass keeps every 2nd sample: S={S}")
     _expect(quads, "quads", torch.bfloat16, (R, S, 8 * C), dev)
     _expect(aux, "aux", torch.float32, (R, S, n_pe + 8), dev)
     _expect(dists, "dists", torch.float32, (R, S), dev)
-    _check_params(mp, C, n_pe, dev)
+    _check_params(mp, 2 * C + n_pe, dev)
     rgbmap = torch.empty(R, 3 + cf, dtype=torch.float32, device=dev)
     weights = torch.empty(R, S, dtype=torch.float32, device=dev)
     keeps = torch.empty(R * (S // 2), cf + 5, dtype=torch.bfloat16,
@@ -255,7 +341,7 @@ def march_coarse(quads: torch.Tensor, aux: torch.Tensor, dists: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.march_coarse(
-            *_ptrs(quads, aux, dists, *mp, rgbmap, weights, keeps),
+            *_ptrs(quads, aux, dists, *mp.tensors(), rgbmap, weights, keeps),
             R, S, C, n_pe, H, cf, stream)
     _raise_on(lib, err, "march_coarse")
     march_coarse.launches += 1
@@ -283,24 +369,100 @@ def march_fine(q_new: torch.Tensor, aux_new: torch.Tensor,
     Sa = Sk + Sn
     H, cf = mp.w0.shape[0], mp.wr.shape[1]
     dev = q_new.device
+    _check_order(mp, "block", "march_fine")
     _check_widths(Sn, C, n_pe, mp)
     _expect(q_new, "q_new", torch.bfloat16, (R, Sn, 8 * C), dev)
     _expect(aux_new, "aux_new", torch.float32, (R, Sn, n_pe + 8), dev)
     _expect(keeps, "keeps", torch.bfloat16, (R * Sk, cf + 5), dev)
     _expect(d_concat, "d_concat", torch.float32, (R, Sa), dev)
     _expect(ranks, "ranks", torch.int32, (R, Sa), dev)
-    _check_params(mp, C, n_pe, dev)
+    _check_params(mp, 2 * C + n_pe, dev)
     rgbmap = torch.empty(R, 3 + cf, dtype=torch.float32, device=dev)
     weights = torch.empty(R, Sa, dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.march_fine(
-            *_ptrs(q_new, aux_new, keeps, d_concat, ranks, *mp, rgbmap,
-                   weights), R, Sn, Sk, C, n_pe, H, cf, stream)
+            *_ptrs(q_new, aux_new, keeps, d_concat, ranks, *mp.tensors(),
+                   rgbmap, weights), R, Sn, Sk, C, n_pe, H, cf, stream)
     _raise_on(lib, err, "march_fine")
     march_fine.launches += 1
     return rgbmap, weights
 
 
 march_fine.launches = 0
+
+
+def march_coarse_x(x: torch.Tensor, dists: torch.Tensor, mp: MarchParams
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Coarse pass on the reduced MLP input. x [R, S, fin] (bf16 on CUDA,
+    interleaved channel order), dists [R, S] f32 (already scaled by |rd|),
+    ``mp`` from ``march_params(..., permute=False)``. Returns as
+    ``march_coarse``."""
+    if not x.is_cuda:
+        return march_coarse_x_plain(x, dists, mp)
+    R, S, fin = x.shape
+    H, cf = mp.w0.shape[0], mp.wr.shape[1]
+    dev = x.device
+    _check_order(mp, "interleaved", "march_coarse_x")
+    _check_x_widths(S, fin, mp)
+    if S % 2:
+        raise ValueError(f"the coarse pass keeps every 2nd sample: S={S}")
+    _expect(x, "x", torch.bfloat16, (R, S, fin), dev)
+    _expect(dists, "dists", torch.float32, (R, S), dev)
+    _check_params(mp, fin, dev)
+    rgbmap = torch.empty(R, 3 + cf, dtype=torch.float32, device=dev)
+    weights = torch.empty(R, S, dtype=torch.float32, device=dev)
+    keeps = torch.empty(R * (S // 2), cf + 5, dtype=torch.bfloat16,
+                        device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.march_coarse_x(
+            *_ptrs(x, dists, *mp.tensors(), rgbmap, weights, keeps),
+            R, S, fin, H, cf, stream)
+    _raise_on(lib, err, "march_coarse_x")
+    march_coarse_x.launches += 1
+    return rgbmap, weights, keeps
+
+
+march_coarse_x.launches = 0
+
+
+def march_fine_x(x_new: torch.Tensor, keeps: torch.Tensor,
+                 d_concat: torch.Tensor, ranks: torch.Tensor,
+                 mp: MarchParams, num_keep: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fine pass on the new samples' reduced MLP input. x_new [R, Sn, fin]
+    (bf16 on CUDA, interleaved channel order); keeps, d_concat, ranks and
+    the result as ``march_fine``; ``mp`` from
+    ``march_params(..., permute=False)``."""
+    if not x_new.is_cuda:
+        return march_fine_x_plain(x_new, keeps, d_concat, ranks, mp,
+                                  num_keep)
+    R, Sn, fin = x_new.shape
+    Sk = int(num_keep)
+    Sa = Sk + Sn
+    H, cf = mp.w0.shape[0], mp.wr.shape[1]
+    dev = x_new.device
+    _check_order(mp, "interleaved", "march_fine_x")
+    _check_x_widths(Sn, fin, mp)
+    _expect(x_new, "x_new", torch.bfloat16, (R, Sn, fin), dev)
+    _expect(keeps, "keeps", torch.bfloat16, (R * Sk, cf + 5), dev)
+    _expect(d_concat, "d_concat", torch.float32, (R, Sa), dev)
+    _expect(ranks, "ranks", torch.int32, (R, Sa), dev)
+    _check_params(mp, fin, dev)
+    rgbmap = torch.empty(R, 3 + cf, dtype=torch.float32, device=dev)
+    weights = torch.empty(R, Sa, dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.march_fine_x(
+            *_ptrs(x_new, keeps, d_concat, ranks, *mp.tensors(), rgbmap,
+                   weights), R, Sn, Sk, fin, H, cf, stream)
+    _raise_on(lib, err, "march_fine_x")
+    march_fine_x.launches += 1
+    return rgbmap, weights
+
+
+march_fine_x.launches = 0

@@ -1,7 +1,8 @@
 """Camera rays and occupancy gating of each ray's [near, far].
 
-Port of ``havatar_tpu/ops/rays.py``: ``get_rays_np`` (host-side numpy, the
-same code), ``ray_aabb_near_far``, ``head_world_aabb`` and
+Port of ``havatar_tpu/ops/rays.py``: ``get_rays_np`` and
+``make_ray_importance_sampling_map`` (host-side numpy, the same code),
+``ray_aabb_near_far``, ``head_world_aabb`` and
 ``tighten_ray_near_far`` on torch tensors.
 """
 
@@ -34,6 +35,14 @@ def get_rays_np(H: int, W: int, intr, c2w: np.ndarray,
         rays_d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
     rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape).copy()
     return rays_o.astype(np.float32), rays_d.astype(np.float32)
+
+
+def make_ray_importance_sampling_map(mask: np.ndarray,
+                                     p: float = 0.9) -> np.ndarray:
+    """Probability map over pixels with mass ``p`` on mask > 0."""
+    probs = np.full(mask.shape, 1.0 - p, dtype=np.float32)
+    probs[mask > 0] = p
+    return probs / probs.sum()
 
 
 def ray_aabb_near_far(rays_o: torch.Tensor, rays_d: torch.Tensor,

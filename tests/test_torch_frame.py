@@ -88,7 +88,7 @@ def test_reenact_frame_matches_jax():
                            jnp.asarray(latent), jnp.asarray(inv_T),
                            *map(jnp.asarray, conds)))
 
-    t_r = TR.AvatarRenderer(**kw)
+    t_r = TR.AvatarRenderer(use_fused_march=True, **kw)
     t_r.load_state_dict(from_jax_params(nerf_vars), strict=True)
     t_g = TG.StyleUNetSR(**sr_kw)
     t_g.load_state_dict(from_jax_params(g_params), strict=True)
@@ -106,7 +106,7 @@ def test_reenact_frame_matches_jax():
 def _golden_render(g, idx, dtype):
     """The port's fused path (twins on the CPU) over golden rays ``idx``,
     blind 64+16, the golden planes given."""
-    r = TR.AvatarRenderer(compute_dtype=dtype)
+    r = TR.AvatarRenderer(compute_dtype=dtype, use_fused_march=True)
     r.load_state_dict(from_jax_params({k: g[k] for k in g.files
                                        if k.startswith(("field.", "skin."))}),
                       strict=False)
