@@ -36,8 +36,29 @@ with a non-zero exit at the first failure:
    launch counts, the ray cache, the first frame against
    ``make_reenact_fn`` on the same tensors, exact against fast, and each
    run's frames/s beside phase 4's bare frame rate.
-7. one JSON line listing each kernel: launches, error against its twin,
-   its time, the twin's time and its bound on this card.
+7. the dense-chain kernels (``csrc/mlp.cu``: forward and backward, float32
+   and bf16) vs their plain twins on seeded inputs at N = 131,072 rows (a
+   stage-1 step's fine call; the coarse call of a 2 x 1024-ray step), 32,768
+   and an N no tile divides (100,003); timed at 1,048,576 (stage 2's).
+8. train: a seeded training set (512^2 target images and masks, two
+   cameras, eight frames, condition PNGs) is written to a temporary
+   directory and trained on through ``havatar_tpu_torch.cli.train_avatar.
+   main`` at the full width of the built-in ``singleview_512_base.yml``
+   with ``models.use_pallas_mlp: true`` and only the cadences shortened:
+   the skinning pretraining, 30 steps of 2 frames x 4096 rays (one 64 x 64
+   patch a frame), 64 + 16 samples, two 512^2 validation renders, a
+   checkpoint, then a second run that resumes from it. The pretraining's
+   BCE and the loss must fall, and the dense-chain kernels must have run
+   twice forward and twice backward a step (plus the validation renders').
+   One step through the kernels is held against the same step through the
+   twins on the same draws and fine samples, gradient by gradient. A few
+   steps in bf16 and a few without the fused chain follow for the record;
+   then the step's time with and without the fused chain in turns, its
+   split by CUDA events and a torch.profiler trace of 5 steps.
+9. one JSON line listing each kernel: launches, error against its twin,
+   its time, the twin's time and its bound on this card; the dense-chain
+   rows also carry the time of the unfused chain (five ``F.linear`` calls
+   and autograd's backward).
 
 The last line is ``{"ok": true, "device": {...}}``. Comparisons run with
 TF32 off for matmuls and cuDNN, so the twins' float32 products are full
@@ -92,6 +113,30 @@ GOLDEN_F32_MIN_PSNR_DB, GOLDEN_F32_TOL = 55.0, dict(atol=5e-3, rtol=1e-2)
 SERVE_MIN_PSNR_DB = 35.0
 SERVE_FRAMES, SERVE_VIEWS = 8, 2
 SERVE_CONFIG = "singleview_512_HD_base.yml"   # built into the port
+
+# dense-chain kernels vs twins (tests/test_torch_mlp_cuda.py states the same
+# bounds). float32: summation order only; forward atol 2e-4, rtol 2e-3,
+# gradients atol 1e-4 * max(1, |want|max), rtol 1e-4. bf16: a hidden
+# activation can round to its other bf16 neighbour, which moves an output by
+# about 2^-8 of the activations' scale: forward atol 3e-2, rtol 3e-2;
+# gradients by their relative L2 error, 2e-2.
+MLP_F32_FWD_TOL = dict(atol=2e-4, rtol=2e-3)
+MLP_F32_GRAD_ATOL, MLP_F32_GRAD_RTOL = 1e-4, 1e-4
+MLP_BF16_FWD_TOL = dict(atol=3e-2, rtol=3e-2)
+MLP_BF16_GRAD_REL_L2 = 2e-2
+MLP_TAIL_N = 100003                           # no tile divides it
+MLP_STAGE2_N = 128 * 128 * 64                 # a stage-2 generator step's rows
+
+TRAIN_CONFIG = "singleview_512_base.yml"      # built into the port
+TRAIN_FRAMES, TRAIN_VIEWS = 8, 2
+TRAIN_STEPS, TRAIN_PRETRAIN, TRAIN_EVERY = 30, 200, 10
+TRAIN_RECORD_STEPS = 6                        # the bf16 and the unfused run
+# a whole step's gradients, kernels against twins on the same draws and fine
+# samples: per tensor, within this share of the tensor's largest entry (plus
+# 1e-6 of the largest gradient entry of all, for tensors whose true gradient
+# is zero). Summation order in the chain, carried through the backward of
+# the plane generators, and the atomics of the other ops' backward.
+TRAIN_GRAD_REL = 1e-3
 
 
 def _fail(msg: str) -> None:
@@ -250,12 +295,13 @@ def phase_device() -> None:
     print(f"[1 device] image codec {image_io.CODEC} {cv2.__version__}, "
           f"yaml {yaml.__version__}", flush=True)
     t0 = time.perf_counter()
-    cuda_build.build(["march"])
-    print(f"[1 device] built csrc/march.cu in "
+    cuda_build.build(["march", "mlp"])      # one nvcc each, side by side
+    print(f"[1 device] built csrc/march.cu and csrc/mlp.cu in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in cuda_build.build_logs.get("march", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for name in ("march", "mlp"):
+        for line in cuda_build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas ({name}):", line.strip())
 
 
 def _march_params(gen, dev, alpha_bias: float):
@@ -490,7 +536,7 @@ def phase_frames(dev):
     # a sample in near-empty space, and that sample's neighbour's delta
     # changes with it: at a few pixels (a) differs by more than the flips of
     # one kernel. So (a) is held by PSNR, and the 5e-3 bound holds (b),
-    # where the fine samples are the main path's; phase 7 holds the coarse
+    # where the fine samples are the main path's; phase 9 holds the coarse
     # kernel to its twin on this frame's own inputs.
     captured = {}
 
@@ -681,49 +727,63 @@ def phase_timing(fs, inputs, tag: str = "4 frames", suffix: str = ""):
     return wall / n * 1e3
 
 
-def phase_profile(fs, inputs, frame_ms: float) -> None:
-    """Device busy time a frame: the summed device time of every kernel,
-    copy and fill in a torch.profiler trace of N_FRAMES frames, against the
-    host clock's unprofiled frame time (the rest is the device's idle
-    share), and the kernels that take the most of it."""
+def profile_device(run, n: int, unit_ms: float, tag: str, unit: str) -> None:
+    """Device busy time a ``unit`` (a frame, a step): the summed device time
+    of every kernel, copy and fill in a torch.profiler trace of ``n`` calls
+    of ``run(i)``, against the host clock's unprofiled time a unit (the rest
+    is the device's idle share), and the kernels that take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(N_FRAMES):
-            fs.frame_fn(**inputs[i])
+        for i in range(n):
+            run(i)
         torch.cuda.synchronize()
     on_dev = sorted((e for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3 / N_FRAMES
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3 / n
     if not busy_ms:
-        print("[4 frames] device busy time: not measured (the profiler "
+        print(f"[{tag}] device busy time: not measured (the profiler "
               "recorded no device activity)", flush=True)
         return
-    print(f"[4 frames] device busy {busy_ms:.4f} ms a frame of "
-          f"{frame_ms:.4f} ms on the host clock: idle share "
-          f"{1 - busy_ms / frame_ms:.4f} (torch.profiler, {N_FRAMES} "
-          f"frames); device launches a frame "
-          f"{sum(e.count for e in on_dev) / N_FRAMES:.1f}", flush=True)
+    print(f"[{tag}] device busy {busy_ms:.4f} ms a {unit} of "
+          f"{unit_ms:.4f} ms on the host clock: idle share "
+          f"{1 - busy_ms / unit_ms:.4f} (torch.profiler, {n} "
+          f"{unit}s); device launches a {unit} "
+          f"{sum(e.count for e in on_dev) / n:.1f}", flush=True)
     for e in on_dev[:12]:
-        print(f"  {e.self_device_time_total / 1e3 / N_FRAMES:8.4f} ms "
-              f"{e.count / N_FRAMES:6.1f}x  {e.key[:100]}")
+        print(f"  {e.self_device_time_total / 1e3 / n:8.4f} ms "
+              f"{e.count / n:6.1f}x  {e.key[:100]}")
 
 
-def _write_serving_files(root: str, fs) -> tuple:
-    """A stage-2 checkpoint of the flagship's seeded modules with seeded
-    latent codes, and a driving split in the reference's format: 512^2
-    frames, two cameras, SERVE_FRAMES frames with seeded head poses and six
-    seeded 256^2 condition PNGs each. Returns (checkpoint, split)."""
-    from havatar_tpu_torch.checkpoints.stage2 import stage2_checkpoint
+def phase_profile(fs, inputs, frame_ms: float) -> None:
+    profile_device(lambda i: fs.frame_fn(**inputs[i]), N_FRAMES, frame_ms,
+                   "4 frames", "frame")
+
+
+def _target_image(f: int, v: int):
+    """A seeded 512^2 training target: a smooth, tinted ellipse (the mask)
+    that shifts with the frame and the view. Returns (rgb uint8, mask
+    uint8), both [512, 512, 3]."""
+    yy, xx = np.mgrid[0:SR_OUT, 0:SR_OUT].astype(np.float32) / (SR_OUT - 1)
+    cx, cy = 0.5 + 0.04 * (v - 0.5) + 0.01 * math.sin(f), 0.5 + 0.01 * f / 8
+    inside = ((xx - cx) / 0.27) ** 2 + ((yy - cy) / 0.36) ** 2 < 1.0
+    rgb = np.stack([0.80 - 0.30 * yy, 0.50 + 0.25 * xx,
+                    0.45 + 0.10 * np.sin(6.0 * yy + f)], -1)
+    mask = np.repeat(inside[..., None], 3, -1)
+    return ((rgb * 255.0 + 0.5).astype(np.uint8),
+            mask.astype(np.uint8) * 255)
+
+
+def _write_split(root: str, rng, n_frames: int, targets: bool) -> str:
+    """A split in the reference's ``sv_v31_all.json`` format under ``root``:
+    512^2 frames, two cameras, ``n_frames`` frames with seeded head poses
+    and six seeded 256^2 condition PNGs each; with ``targets`` also every
+    view's target image and mask (what a training item reads). Returns the
+    split's path."""
     from havatar_tpu_torch.data.image_io import imwrite_rgb
-    rng = np.random.RandomState(7)
-    latents = torch.from_numpy(
-        (rng.randn(SERVE_FRAMES, 32) * 0.5).astype(np.float32))
-    ckpt = os.path.join(root, "latest.pt")
-    torch.save(stage2_checkpoint(fs.renderer, fs.generator, latents, 0), ckpt)
 
     def camera(x, yaw):
         c, s_ = math.cos(yaw), math.sin(yaw)
@@ -737,7 +797,7 @@ def _write_serving_files(root: str, fs) -> tuple:
 
     cams = [camera(0.0, 0.0), camera(0.45, 0.15)]
     frames = []
-    for f in range(SERVE_FRAMES):
+    for f in range(n_frames):
         inst = os.path.join(root, f"inst_{f}")
         os.makedirs(inst)
         for view in ("front", "left", "right"):
@@ -752,20 +812,39 @@ def _write_serving_files(root: str, fs) -> tuple:
         head[:3, :3] = (np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
                         @ np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]]))
         head[3, :3] = rng.uniform(-0.05, 0.05, 3)
-        frames.append({
-            "fidx": f, "head_transformation": head.tolist(),
-            "inst_dir": inst,
-            "mutiview_info_ls": [
-                {"view_name": str(v), "transform_matrix": c2w,
-                 "transform_matrix_ori": ori}
-                for v, (c2w, ori) in enumerate(cams)]})
+        views = []
+        for v, (c2w, ori) in enumerate(cams):
+            info = {"view_name": str(v), "transform_matrix": c2w,
+                    "transform_matrix_ori": ori}
+            if targets:
+                rgb, mask = _target_image(f, v)
+                info["file_path"] = os.path.join(root, f"frame_{f}_{v}.png")
+                info["mask_path"] = os.path.join(root, f"mask_{f}_{v}.png")
+                imwrite_rgb(info["file_path"], rgb)
+                imwrite_rgb(info["mask_path"], mask)
+            views.append(info)
+        frames.append({"fidx": f, "head_transformation": head.tolist(),
+                       "inst_dir": inst, "mutiview_info_ls": views})
     split = os.path.join(root, "sv_v31_all.json")
     with open(split, "w") as f:
         json.dump({"img_res": SR_OUT,
                    "mutiview_intr_ls": [[1.2 * SR_OUT, 1.2 * SR_OUT, .5, .5],
                                         [1.3 * SR_OUT, 1.3 * SR_OUT, .5, .5]],
                    "frames": frames}, f)
-    return ckpt, split
+    return split
+
+
+def _write_serving_files(root: str, fs) -> tuple:
+    """A stage-2 checkpoint of the flagship's seeded modules with seeded
+    latent codes, and a driving split of SERVE_FRAMES frames (see
+    ``_write_split``). Returns (checkpoint, split)."""
+    from havatar_tpu_torch.checkpoints.stage2 import stage2_checkpoint
+    rng = np.random.RandomState(7)
+    latents = torch.from_numpy(
+        (rng.randn(SERVE_FRAMES, 32) * 0.5).astype(np.float32))
+    ckpt = os.path.join(root, "latest.pt")
+    torch.save(stage2_checkpoint(fs.renderer, fs.generator, latents, 0), ckpt)
+    return ckpt, _write_split(root, rng, SERVE_FRAMES, targets=False)
 
 
 def phase_serve(dev, fs, bare_frame_ms: float) -> dict:
@@ -911,6 +990,572 @@ def phase_serve(dev, fs, bare_frame_ms: float) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the dense chain (csrc/mlp.cu) and stage-1 training
+# ---------------------------------------------------------------------------
+
+MLP_GRAD_NAMES = ("dx", "w0", "b0", "w1", "b1", "w_feat", "b_feat", "w_alpha",
+                  "b_alpha", "w_rgb", "b_rgb")
+
+
+def _mlp_macs() -> tuple:
+    """Multiply-adds a row, (forward, backward): the backward recomputes the
+    three hidden products, runs the transposed chain and contracts every
+    weight gradient."""
+    from havatar_tpu_torch.ops.mlp import CF, FIN, HID
+    l0, l1, lf = FIN * HID, HID * HID, HID * CF
+    fwd = l0 + l1 + lf + HID + CF * 3
+    return fwd, (l0 + l1 + lf) + fwd + fwd
+
+
+def mlp_bound(x, params, backward: bool):
+    """Bound of a dense-chain kernel from its call's arguments: x, the
+    parameters and the [N, 68] float32 output move once (the backward reads
+    that much cotangent and also writes dx and the parameter gradients); the
+    products run at the rate of x's type."""
+    n = x.shape[0]
+    fwd, bwd = _mlp_macs()
+    nbytes = _nbytes(x, *params) + n * 68 * 4
+    if backward:
+        nbytes += _nbytes(x, *params)
+    ops = 2.0 * n * (bwd if backward else fwd)
+    bf16 = x.dtype == torch.bfloat16
+    return _bound_ms(nbytes, ops if bf16 else 0.0, 0.0 if bf16 else ops)
+
+
+def _mlp_params(gen, dev) -> tuple:
+    """The five layers at LeCun-normal scale (activations of order 1)."""
+    from havatar_tpu_torch.ops.mlp import CF, FIN, HID
+    out = []
+    for o, i in ((HID, FIN), (HID, HID), (CF, HID), (1, HID), (3, CF)):
+        out.append((torch.randn(o, i, generator=gen) / i ** 0.5).to(dev))
+        out.append((torch.randn(o, generator=gen) * 0.2).to(dev))
+    return tuple(out)
+
+
+def compare_mlp_forward(got, want, dtype, where: str) -> float:
+    tol = MLP_BF16_FWD_TOL if dtype == torch.bfloat16 else MLP_F32_FWD_TOL
+    err = _max_err(got, want)
+    _check(got.shape == want.shape and got.dtype == torch.float32
+           and torch.allclose(got, want, **tol),
+           f"{where}: forward max abs err {err}")
+    return err
+
+
+def compare_mlp_backward(got, want, dtype, where: str) -> dict:
+    """(dx, grads) of the backward kernel against the twin's: the largest
+    absolute error and the largest relative L2 error over dx and the ten
+    parameter gradients."""
+    worst = {"max_abs_err": 0.0, "max_rel_l2": 0.0}
+    for name, a, b in zip(MLP_GRAD_NAMES, (got[0], *got[1]),
+                          (want[0], *want[1])):
+        _check(a.shape == b.shape and a.dtype == b.dtype,
+               f"{where}: {name} is {tuple(a.shape)} {a.dtype}")
+        a, b = a.float(), b.float()
+        err = _max_err(a, b)
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-12))
+        if dtype == torch.bfloat16:
+            ok = rel < MLP_BF16_GRAD_REL_L2
+        else:
+            scale = max(1.0, float(b.abs().max()))
+            ok = torch.allclose(a, b, atol=MLP_F32_GRAD_ATOL * scale,
+                                rtol=MLP_F32_GRAD_RTOL)
+        _check(ok, f"{where}: {name} max abs err {err}, relative L2 {rel}")
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["max_rel_l2"] = max(worst["max_rel_l2"], rel)
+    return worst
+
+
+def _unfused_chain(x, params, g=None):
+    """The chain as the field runs it without the fused op: five
+    ``F.linear`` calls in x's type; with ``g`` also autograd's backward to x
+    and every parameter."""
+    import torch.nn.functional as F
+    if g is not None:
+        x = x.detach().requires_grad_()
+        params = [p.detach().requires_grad_() for p in params]
+    w0, b0, w1, b1, wf, bf, wa, ba, wr, br = params
+    cdt = x.dtype
+
+    def dense(h, w, b):
+        return F.linear(h, w.to(cdt), b.to(cdt))
+
+    h = torch.relu(dense(torch.relu(dense(x, w0, b0)), w1, b1))
+    feat = dense(h, wf, bf)
+    out = torch.cat([dense(feat, wr, br).float(), feat.float(),
+                     dense(h, wa, ba).float()], -1)
+    if g is not None:
+        return torch.autograd.grad(out, (x, *params), g)
+    return out
+
+
+def mlp_timings(x, g, params) -> dict:
+    """CUDA-event times at one call's arguments: the two kernels, their
+    twins, the unfused chain (forward, and forward with backward), and the
+    two bounds."""
+    from havatar_tpu_torch.ops import mlp as M
+    big = x.shape[0] > 500_000
+    it, it_plain = (5, 2) if big else (20, 5)
+    with torch.no_grad():
+        t = {"fwd_ms": _time_ms(lambda: M.mlp_forward(x, *params), it),
+             "bwd_ms": _time_ms(lambda: M.mlp_backward(x, g, *params), it),
+             "fwd_plain_ms": _time_ms(
+                 lambda: M.fused_mlp_chain_plain(x, *params), it_plain, 1),
+             "bwd_plain_ms": _time_ms(
+                 lambda: M.fused_mlp_chain_bwd_plain(x, g, *params),
+                 it_plain, 1),
+             "unfused_fwd_ms": _time_ms(lambda: _unfused_chain(x, params),
+                                        it_plain, 1)}
+    t["unfused_fwd_bwd_ms"] = _time_ms(lambda: _unfused_chain(x, params, g),
+                                       it_plain, 1)
+    (t["fwd_bound_ms"], t["fwd_bound_by"]) = mlp_bound(x, params, False)
+    (t["bwd_bound_ms"], t["bwd_bound_by"]) = mlp_bound(x, params, True)
+    return t
+
+
+def phase_mlp_kernels(dev) -> None:
+    """Kernels 5 and 6 against their twins on seeded inputs, float32 and
+    bf16, at 131,072 and 32,768 rows and at a ragged N; the run-to-run
+    difference of the atomically summed weight gradients; times at the
+    stage-2 shape, which no path here runs yet."""
+    from havatar_tpu_torch.ops import mlp as M
+    from havatar_tpu_torch.ops.mlp import FIN
+    gen = torch.Generator().manual_seed(5)
+    params = _mlp_params(gen, dev)
+    n_big, n_small = 131072, 32768
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for n in (n_big, n_small, MLP_TAIL_N):
+            where = f"phase 7, {name}, N = {n}"
+            x = torch.randn(n, FIN, generator=gen).to(dev).to(dtype)
+            g = torch.randn(n, 68, generator=gen).to(dev)
+            with torch.no_grad():
+                got = M.mlp_forward(x, *params)
+                torch.cuda.synchronize()
+                err_f = compare_mlp_forward(
+                    got, M.fused_mlp_chain_plain(x, *params), dtype, where)
+                got_b = M.mlp_backward(x, g, *params)
+                torch.cuda.synchronize()
+                err_b = compare_mlp_backward(
+                    got_b, M.fused_mlp_chain_bwd_plain(x, g, *params), dtype,
+                    where)
+            print(f"[7 mlp] {name} N = {n}: forward max abs err {err_f:.3g}; "
+                  f"backward max abs err {err_b['max_abs_err']:.3g}, max "
+                  f"relative L2 {err_b['max_rel_l2']:.3g}", flush=True)
+            if n == n_big:
+                with torch.no_grad():
+                    again = M.mlp_backward(x, g, *params)
+                torch.cuda.synchronize()
+                diff = max(_max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                           for a, b in zip(again[1], got_b[1]))
+                same_dx = bool(torch.equal(again[0], got_b[0]))
+                print(f"[7 mlp] {name} N = {n}: two backward launches on "
+                      f"the same inputs: parameter gradients differ by at "
+                      f"most {diff:.3g} of a tensor's largest entry (atomic "
+                      f"sums over blocks); dx bit-identical: {same_dx}",
+                      flush=True)
+        x = torch.randn(MLP_STAGE2_N, FIN, generator=gen).to(dev).to(dtype)
+        g = torch.randn(MLP_STAGE2_N, 68, generator=gen).to(dev)
+        t = mlp_timings(x, g, params)
+        print(f"[7 mlp] {name} N = {MLP_STAGE2_N} (a stage-2 generator "
+              f"step's rows; timed only): " + json.dumps(
+                  {k: round(v, 4) if isinstance(v, float) else v
+                   for k, v in t.items()}), flush=True)
+        del x, g
+    torch.cuda.empty_cache()
+
+
+def _train_config(root: str, name: str, **models) -> str:
+    """The built-in stage-1 config, nothing of the model cut, with the
+    cadences shortened (print every step, validate and save every
+    TRAIN_EVERY) and ``models`` entries set; written under ``root``."""
+    from havatar_tpu_torch.cli.common import resolve_config
+    cfg = resolve_config(TRAIN_CONFIG)
+    cfg.experiment.print_every = 1
+    cfg.experiment.validate_every = TRAIN_EVERY
+    cfg.experiment.save_every = TRAIN_EVERY
+    for k, v in models.items():
+        cfg.models[k] = v
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        f.write(cfg.dump())
+    return path
+
+
+def _one_step_kernels_vs_twins(dev, cfg, data: str) -> dict:
+    """One stage-1 step's loss and gradients through the CUDA kernels
+    against the same step through the plain twins: same seeded weights,
+    batch and draws, and the kernel run's fine samples (the inverse CDF
+    turns a rounding difference of a coarse weight into a jump of a sample).
+    Returns what the kernel run's coarse call was given: (x, g, params)."""
+    from havatar_tpu_torch.cli.common import to_device_batch
+    from havatar_tpu_torch.cli.train_avatar import TRAIN_KEYS
+    from havatar_tpu_torch.data import AvatarDataset, Loader
+    from havatar_tpu_torch.models import nerf_field
+    from havatar_tpu_torch.models import renderer as R
+    from havatar_tpu_torch.ops import mlp as M
+    from havatar_tpu_torch.train import stage1
+    torch.manual_seed(11)
+    ds = AvatarDataset(os.path.join(data, "sv_v31_all.json"), "train", cfg,
+                       down_sample=cfg.dataset.down_sample)
+    state = stage1.init_state(cfg, len(ds), dev)
+    batch = next(iter(Loader(ds, batch_size=2, seed=3, num_workers=1)))
+    batch = to_device_batch({k: batch[k] for k in TRAIN_KEYS}, dev)
+    nerf = cfg.nerf.train
+    B, Rn = batch["mv_rays"].shape[:2]
+    noise = R.draw_render_noise(
+        torch.Generator(device=dev).manual_seed(12), B, Rn, nerf.num_coarse,
+        nerf.num_fine, bool(nerf.perturb),
+        float(nerf.radiance_field_noise_std), dev)
+    loss_fn = stage1.make_loss_fn(state.renderer, cfg)
+    params = list(state.renderer.parameters()) + [state.latent_codes]
+    names = [n for n, _ in state.renderer.named_parameters()] + [
+        "latent_codes"]
+
+    def step():
+        for p in params:
+            p.grad = None
+        loss, _ = loss_fn(state.latent_codes, batch, noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), [None if p.grad is None else p.grad.clone()
+                             for p in params]
+
+    calls, samples = [], []
+    real_op, real_pdf = nerf_field.fused_mlp_chain, R.sample_pdf
+
+    def recording_op(x, *ps):
+        call = {"x": x.detach(), "params": tuple(p.detach() for p in ps)}
+        out = real_op(x, *ps)
+        out.register_hook(lambda g: call.__setitem__("g", g.detach()))
+        calls.append(call)
+        return out
+
+    def recording_pdf(*a, **kw):
+        samples.append(real_pdf(*a, **kw))
+        return samples[-1]
+
+    n0 = M.mlp_forward.launches, M.mlp_backward.launches
+    nerf_field.fused_mlp_chain = recording_op
+    try:
+        with patched(sample_pdf=recording_pdf):
+            loss_k, grads_k = step()
+        n1 = M.mlp_forward.launches, M.mlp_backward.launches
+        nerf_field.fused_mlp_chain = M.fused_mlp_chain_plain
+        with patched(sample_pdf=lambda *a, **kw: samples[0]):
+            loss_t, grads_t = step()
+    finally:
+        nerf_field.fused_mlp_chain = real_op
+    _check((n1[0] - n0[0], n1[1] - n0[1]) == (2, 2)
+           and (M.mlp_forward.launches, M.mlp_backward.launches) == n1,
+           f"one step launched the dense-chain kernels {n0} -> {n1}, the "
+           f"twins' step {n1} -> "
+           f"{(M.mlp_forward.launches, M.mlp_backward.launches)}")
+    rows = [c["x"].shape[0] for c in calls]
+    _check(rows == [B * Rn * nerf.num_coarse, B * Rn * nerf.num_fine]
+           and all("g" in c for c in calls),
+           f"the step's dense-chain calls had {rows} rows")
+    gmax = max(float(g.abs().max()) for g in grads_t if g is not None)
+    worst, worst_name = 0.0, ""
+    for name, a, b in zip(names, grads_k, grads_t):
+        _check((a is None) == (b is None), f"{name}: gradient missing")
+        if a is None:
+            continue
+        _check(bool(torch.isfinite(a).all()), f"{name}: gradient not finite")
+        ref = float(b.abs().max())
+        err = _max_err(a, b)
+        _check(err <= TRAIN_GRAD_REL * ref + 1e-6 * gmax,
+               f"one step, kernels vs twins: {name} gradient max abs err "
+               f"{err} beside a largest entry of {ref}")
+        if ref > 1e-3 * gmax and err / ref > worst:
+            worst, worst_name = err / ref, name
+    _check(abs(loss_k - loss_t) <= 1e-5 * abs(loss_t),
+           f"one step, kernels vs twins: loss {loss_k} vs {loss_t}")
+    print(f"[8 train] one step at full width, kernels vs twins on the same "
+          f"draws and fine samples: loss {loss_k:.7f} vs {loss_t:.7f}; "
+          f"{sum(g is not None for g in grads_k)} gradients, the worst "
+          f"({worst_name}) off by {worst:.3g} of its largest entry (bound "
+          f"{TRAIN_GRAD_REL})", flush=True)
+    c = calls[0]
+    return {"x": c["x"], "g": c["g"], "params": c["params"]}
+
+
+class _TrainRun:
+    """A stage-1 state on the seeded training set with its loader, warmed up
+    by three steps: what the step timings below run on."""
+
+    def __init__(self, dev, cfg, data: str):
+        from havatar_tpu_torch.cli.train_avatar import TRAIN_KEYS
+        from havatar_tpu_torch.data import (AvatarDataset, Loader,
+                                            device_prefetch, infinite)
+        from havatar_tpu_torch.train import stage1
+        torch.manual_seed(13)
+        ds = AvatarDataset(os.path.join(data, "sv_v31_all.json"), "train",
+                           cfg, down_sample=cfg.dataset.down_sample)
+        self.cfg = cfg
+        self.state = stage1.init_state(cfg, len(ds), dev)
+        self.batches = device_prefetch(
+            infinite(Loader(ds, batch_size=2, seed=4)), size=2, device=dev,
+            keys=TRAIN_KEYS)
+        self.rng = torch.Generator(device=dev).manual_seed(14)
+        self.loss_fn = stage1.make_loss_fn(self.state.renderer, cfg)
+        self.train_step = stage1.make_train_step(self.state, cfg)
+        for _ in range(3):
+            self.step()
+        torch.cuda.synchronize()
+
+    def step(self, _i: int = 0) -> None:
+        self.train_step(next(self.batches), self.rng)
+
+    def ms_a_step(self, n: int = 10) -> float:
+        """Host clock over ``n`` steps back to back, the device drained."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            self.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+
+def _step_split(run: _TrainRun) -> None:
+    """Steady-state training steps taken apart: the wait for a batch (host
+    clock), then forward, backward and optimizer update as CUDA-event spans
+    (the device's waits for the host's launches included), and the device's
+    busy time in a torch.profiler trace of 5 steps."""
+    from havatar_tpu_torch.train import stage1
+    state, cfg = run.state, run.cfg
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    n, marks, waits = 10, [], []
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        batch = next(run.batches)
+        waits.append(time.perf_counter() - t0)
+        m = [event()]
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _ = run.loss_fn(state.latent_codes, batch, run.rng)
+        m.append(event())
+        loss.backward()
+        m.append(event())
+        for group in state.optimizer.param_groups:
+            group["lr"] = stage1.learning_rate(cfg, state.step)
+        state.optimizer.step()
+        state.step += 1
+        m.append(event())
+        marks.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_all) / n * 1e3
+    split = {"data_wait_host_ms": sum(waits) / n * 1e3}
+    for i, k in enumerate(("forward", "backward", "optimizer")):
+        split[f"{k}_ms"] = sum(m[i].elapsed_time(m[i + 1])
+                               for m in marks) / n
+    rays = batch["mv_rays"].shape
+    print(f"[8 train] a step is {rays[0]} frames x {rays[1]} rays; "
+          f"{step_ms:.2f} ms a step on the host clock ({n} steps back to "
+          f"back, fused chain); split, mean of {n}: "
+          + json.dumps({k: round(v, 4) for k, v in split.items()}),
+          flush=True)
+    profile_device(run.step, 5, step_ms, "8 train", "step")
+
+
+def phase_train(dev) -> tuple:
+    """Stage-1 training through the CLI at full width (see the module
+    docstring, phase 8). Returns the dense-chain launch counts of the main
+    run, of the bf16 run, and the arguments of one step's coarse call."""
+    from havatar_tpu_torch.cli import train_avatar as cli
+    from havatar_tpu_torch.cli.common import resolve_config
+    from havatar_tpu_torch.ops import mlp as M
+
+    def counts():
+        return {"mlp_fwd": M.mlp_forward.launches,
+                "mlp_bwd": M.mlp_backward.launches}
+
+    def reset():
+        M.mlp_forward.launches = M.mlp_backward.launches = 0
+        M.fused_mlp_chain.launches = 0
+
+    with tempfile.TemporaryDirectory(prefix="havatar_train_") as root:
+        t0 = time.perf_counter()
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        _write_split(data, np.random.RandomState(8), TRAIN_FRAMES,
+                     targets=True)
+        fused = _train_config(root, "fused.yml", use_pallas_mlp=True)
+        print(f"[8 train] wrote a training set of {TRAIN_FRAMES} frames x "
+              f"{TRAIN_VIEWS} views (512^2 targets and masks) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # the main path: a fresh run, then a resumed one
+        logs = os.path.join(root, "logs")
+        reset()
+        st = cli.main(["--datadir", data, "--logdir", logs, "--config", fused,
+                       "--max-iters", str(TRAIN_STEPS), "--pretrain-iters",
+                       str(TRAIN_PRETRAIN)])
+        torch.cuda.synchronize()
+        main_counts = counts()
+        losses, bce = st["losses"], st["pretrain_bce"]
+        n_val = (TRAIN_STEPS - 1) // TRAIN_EVERY
+        # a 512^2 validation image goes through render_chunked in 16 chunks
+        # of 16384 rays, each with a coarse and a fine forward launch
+        val_launches = n_val * 2 * -(-SR_OUT * SR_OUT // 16384)
+        print(f"[8 train] {st['step']} steps: loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f} (mean of the first 5 "
+              f"{np.mean(losses[:5]):.5f}, of the last 5 "
+              f"{np.mean(losses[-5:]):.5f}); pretraining BCE {bce[0]:.4f} -> "
+              f"{bce[-1]:.4f} over {len(bce)} iterations; validation PSNR "
+              f"{st['val_psnr']}; {st['s_per_iter']:.4f} s/iter (host clock, "
+              f"device synchronized, mean of all steps); launches "
+              f"{main_counts}, of which {val_launches} forward from "
+              f"{n_val} validation renders", flush=True)
+        _check(st["step"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+               and bool(np.isfinite(losses).all()), f"training: {st}")
+        _check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+               "the loss did not fall")
+        _check(len(bce) == TRAIN_PRETRAIN and bool(np.isfinite(bce).all())
+               and np.mean(bce[-10:]) < np.mean(bce[:10]),
+               "the pretraining's BCE did not fall")
+        _check(main_counts == {"mlp_fwd": 2 * TRAIN_STEPS + val_launches,
+                               "mlp_bwd": 2 * TRAIN_STEPS},
+               f"dense-chain launches {main_counts} for {TRAIN_STEPS} steps "
+               f"and {n_val} validation renders")
+        _check(M.fused_mlp_chain.launches == sum(main_counts.values()),
+               "fused_mlp_chain.launches is not the sum of its halves")
+        _check(len(st["val_psnr"]) == n_val
+               and bool(np.isfinite(st["val_psnr"]).all())
+               and all(os.path.exists(os.path.join(
+                   logs, f"val_rgb_{i * TRAIN_EVERY:06d}.png"))
+                   for i in range(1, n_val + 1)),
+               f"validation: {st['val_psnr']}, {sorted(os.listdir(logs))}")
+        ckpt = os.path.join(st["checkpoint_dir"],
+                            f"ckpt_{TRAIN_STEPS:08d}.pt")
+        _check(os.path.exists(ckpt) and TRAIN_STEPS in st["saved_steps"],
+               f"no checkpoint of step {TRAIN_STEPS}: {st['saved_steps']}")
+        st2 = cli.main(["--datadir", data, "--logdir",
+                        os.path.join(root, "logs_resumed"), "--config", fused,
+                        "--max-iters", str(TRAIN_STEPS + 2), "--ckpt", ckpt])
+        _check(st2["start_step"] == TRAIN_STEPS
+               and st2["step"] == TRAIN_STEPS + 2
+               and st2["pretrain_bce"] == []
+               and bool(np.isfinite(st2["losses"]).all()),
+               f"resumed run: {st2}")
+        print(f"[8 train] resumed from {os.path.basename(ckpt)} "
+              f"({os.path.getsize(ckpt) / 2**20:.1f} MiB) at step "
+              f"{st2['start_step']}, two more steps: loss "
+              f"{st2['losses']}", flush=True)
+
+        captured = _one_step_kernels_vs_twins(dev, resolve_config(fused),
+                                              data)
+
+        # for the record: the same model in bf16 (the kernels' other type),
+        # and in float32 without the fused chain
+        reset()
+        st_b = cli.main([
+            "--datadir", data, "--logdir", os.path.join(root, "logs_bf16"),
+            "--config", _train_config(root, "bf16.yml", use_pallas_mlp=True,
+                                      compute_dtype="bfloat16"),
+            "--max-iters", str(TRAIN_RECORD_STEPS), "--pretrain-iters", "0"])
+        torch.cuda.synchronize()
+        bf16_counts = counts()
+        _check(bool(np.isfinite(st_b["losses"]).all())
+               and bf16_counts == {"mlp_fwd": 2 * TRAIN_RECORD_STEPS,
+                                   "mlp_bwd": 2 * TRAIN_RECORD_STEPS},
+               f"bf16 run: {st_b['losses']}, launches {bf16_counts}")
+        reset()
+        st_u = cli.main([
+            "--datadir", data, "--logdir", os.path.join(root, "logs_plain"),
+            "--config", _train_config(root, "plain.yml"),
+            "--max-iters", str(TRAIN_RECORD_STEPS), "--pretrain-iters", "0"])
+        torch.cuda.synchronize()
+        _check(bool(np.isfinite(st_u["losses"]).all())
+               and counts() == {"mlp_fwd": 0, "mlp_bwd": 0},
+               f"unfused run: {st_u['losses']}, launches {counts()}")
+        for what, s_ in (("bf16, fused chain", st_b),
+                         ("float32, unfused chain", st_u)):
+            print(f"[8 train] {what}, {TRAIN_RECORD_STEPS} steps from "
+                  f"scratch: loss {s_['losses'][0]:.5f} -> "
+                  f"{s_['losses'][-1]:.5f}, {s_['s_per_iter']:.4f} s/iter "
+                  f"(the first steps' warm-up included)", flush=True)
+        print(f"[8 train] bf16 run's launches {bf16_counts}", flush=True)
+
+        # the step with and without the fused chain, in turns on this card
+        cfgs = {"fused": resolve_config(fused),
+                "unfused": resolve_config(os.path.join(root, "plain.yml"))}
+        turns = []
+        for which in ("unfused", "fused", "fused", "unfused"):
+            run = _TrainRun(dev, cfgs[which], data)
+            turns.append((which, round(run.ms_a_step(), 2)))
+            if len(turns) == 2:
+                _step_split(run)
+            del run
+            torch.cuda.empty_cache()
+        print(f"[8 train] ms a step on the host clock, 10 steps back to "
+              f"back after 3 warm-up, a fresh state each turn: {turns}",
+              flush=True)
+    return main_counts, bf16_counts, captured
+
+
+def mlp_kernel_rows(captured, main_counts, bf16_counts) -> list:
+    """The four dense-chain rows of the kernels line, on what a training
+    step's coarse call gave the op (N = 2 x 4096 x 64 rows: with
+    ``patch_rgb`` an item is one 64 x 64 patch; for the bf16 pair the same
+    tensors in bf16). ``launches`` of the float32 pair is the
+    main training run's count, of the bf16 pair the bf16 run's."""
+    from havatar_tpu_torch.ops import mlp as M
+    rows = []
+    for dtype, launches in ((torch.float32, main_counts),
+                            (torch.bfloat16, bf16_counts)):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        x = captured["x"].to(dtype).contiguous()
+        g, params = captured["g"].contiguous(), captured["params"]
+        where = f"phase 9, {dtype}, a step's coarse call"
+        with torch.no_grad():
+            got = M.mlp_forward(x, *params)
+            torch.cuda.synchronize()
+            err_f = compare_mlp_forward(
+                got, M.fused_mlp_chain_plain(x, *params), dtype, where)
+            got_b = M.mlp_backward(x, g, *params)
+            torch.cuda.synchronize()
+            err_b = compare_mlp_backward(
+                got_b, M.fused_mlp_chain_bwd_plain(x, g, *params), dtype,
+                where)
+        t = mlp_timings(x, g, params)
+        common = {"route": "cuda",
+                  "source": "havatar_tpu_torch/csrc/mlp.cu",
+                  "n_rows": x.shape[0], "library_ms": None}
+        rows.append({
+            "name": f"mlp_fwd_{name}", **common,
+            "replaces": "havatar_tpu/ops/pallas_mlp.py:99",
+            "launches": launches["mlp_fwd"], "max_abs_err": err_f,
+            "ms": t["fwd_ms"], "plain_ms": t["fwd_plain_ms"],
+            "bound_ms": t["fwd_bound_ms"], "bound_by": t["fwd_bound_by"],
+            "unfused_ms": t["unfused_fwd_ms"]})
+        rows.append({
+            "name": f"mlp_bwd_{name}", **common,
+            "replaces": "havatar_tpu/ops/pallas_mlp.py:231",
+            "launches": launches["mlp_bwd"], **err_b,
+            "ms": t["bwd_ms"], "plain_ms": t["bwd_plain_ms"],
+            "bound_ms": t["bwd_bound_ms"], "bound_by": t["bwd_bound_by"],
+            "unfused_ms": t["unfused_fwd_bwd_ms"] - t["unfused_fwd_ms"]})
+    # the step's fine call has a quarter of the coarse call's rows; a
+    # 1024-ray batch (patch_rgb off) would give a quarter of both
+    n = captured["x"].shape[0]
+    for rows_n, what in ((n // 4, "a step's fine call"),
+                         (n // 16, "the fine call of a 2 x 1024-ray step")):
+        t = mlp_timings(captured["x"][:rows_n].contiguous(),
+                        captured["g"][:rows_n].contiguous(),
+                        captured["params"])
+        print(f"[9 kernels] float32, N = {rows_n} ({what}): "
+              + json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                            for k, v in t.items()}), flush=True)
+    return rows
+
+
 def phase_kernel_line(captured, launches, serve_launches) -> list:
     """Each kernel on the inputs the frame gave it: error against its twin,
     its time and the twin's (CUDA events), and its bound. ``launches`` is
@@ -934,7 +1579,7 @@ def phase_kernel_line(captured, launches, serve_launches) -> list:
         with torch.inference_mode():
             got = kernel(*a, **kw)
             torch.cuda.synchronize()
-            errs = compare(got, plain(*a, **kw), "phase 7")
+            errs = compare(got, plain(*a, **kw), "phase 9")
             ms = _time_ms(lambda: kernel(*a, **kw))
             plain_ms = _time_ms(lambda: plain(*a, **kw), iters=5)
         bound, by = bound_fn(a, got)
@@ -976,8 +1621,13 @@ def main() -> int:
     phase_timing(fs_x, inputs, tag="5 reduced", suffix="_x")
     del fs_x, frames
     serve_launches = phase_serve(dev, fs, frame_ms)
+    del fs
+    torch.cuda.empty_cache()
+    phase_mlp_kernels(dev)
+    train_counts, bf16_counts, train_captured = phase_train(dev)
     rows = phase_kernel_line({**captured, **captured_x},
                              {**launches, **launches_x}, serve_launches)
+    rows += mlp_kernel_rows(train_captured, train_counts, bf16_counts)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

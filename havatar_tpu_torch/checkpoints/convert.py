@@ -221,6 +221,10 @@ def from_jax_params(variables: Mapping) -> StateDict:
     * a flat mapping with ``field.*`` / ``skin.*`` keys (the production
       golden) -> the field MLP and skinning-decoder keys of
       ``AvatarRenderer``.
+
+    Parameters and buffers cross (and, being linear maps of them, their
+    gradients); a JAX trainer's optimizer state does not: a parity test of
+    training steps starts both sides from zero moments.
     """
     keys = list(variables.keys())
     if any(k.startswith(("field.", "skin.")) for k in keys):

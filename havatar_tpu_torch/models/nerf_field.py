@@ -8,8 +8,10 @@ PlaneGenerator over all three, planes split on channels; 'two_head': a
 TwoHeadPlaneGenerator), the three ways a renderer feeds the five dense
 layers:
 
-* ``forward``: plane features ++ posenc through the plain dense chain
-  (sh_deg = 0), the exact renderer's field evaluation;
+* ``forward``: plane features ++ posenc through the dense chain (sh_deg =
+  0), the exact renderer's field evaluation: five ``F.linear`` calls, or
+  with ``use_fused_mlp`` the fused op ``ops/mlp.py:fused_mlp_chain``, whose
+  forward and backward are one CUDA kernel each (JAX: ``use_pallas_mlp``);
 * ``field_inputs``: that chain's input alone, [B, N, 2C + posenc] in the
   compute dtype and the reference's interleaved channel order, for the
   reduced-input march kernels (``march_params(dtype, permute=False)``);
@@ -39,6 +41,7 @@ from havatar_tpu_torch.ops.grid_sample import (
     sample_from_triplane,
 )
 from havatar_tpu_torch.ops.march import MarchParams, march_params
+from havatar_tpu_torch.ops.mlp import fused_mlp_chain
 
 
 class DoublePlaneNeRFField(nn.Module):
@@ -48,8 +51,10 @@ class DoublePlaneNeRFField(nn.Module):
                  cond_res: int = 256, plane_middle_size: int = 16,
                  enc_mode: str = "split", hidden: int = 128,
                  feat_dim: int = 64,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 use_fused_mlp: bool = False):
         super().__init__()
+        self.use_fused_mlp = use_fused_mlp
         self.num_encoding_fn_xyz = num_encoding_fn_xyz
         self.plane_feat_dim = plane_feat_dim
         self.enc_mode = enc_mode
@@ -152,6 +157,17 @@ class DoublePlaneNeRFField(nn.Module):
             return F.linear(x, lin.weight.to(cdt), lin.bias.to(cdt))
 
         x = self.field_inputs(pts, planes)
+        if self.use_fused_mlp:
+            # the parameters go in as they are (not detached): the op's
+            # backward fills their .grad
+            B, N, fin = x.shape
+            l0, l1 = self.layers_xyz
+            out = fused_mlp_chain(
+                x.reshape(B * N, fin), l0.weight, l0.bias, l1.weight,
+                l1.bias, self.fc_rgbFeat.weight, self.fc_rgbFeat.bias,
+                self.fc_alpha.weight, self.fc_alpha.bias, self.fc_rgb.weight,
+                self.fc_rgb.bias)
+            return out.reshape(B, N, -1)
         x = torch.relu(dense(self.layers_xyz[0], x))
         x = torch.relu(dense(self.layers_xyz[1], x))
         alpha = dense(self.fc_alpha, x).float()

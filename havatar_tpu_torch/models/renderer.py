@@ -1,5 +1,5 @@
 """The avatar renderer: conditioned double-plane field + skinning + two-pass
-(coarse/fine) volume rendering, on its deterministic inference paths.
+(coarse/fine) volume rendering, for inference and for training.
 
 Port of ``havatar_tpu/models/renderer.py``'s ``AvatarRenderer``. Its three
 inference configurations sit behind two constructor switches:
@@ -23,8 +23,18 @@ True               False             the fused march on the reduced MLP
 All three: stratified-linspace coarse samples, skinning, plane sampling, a
 coarse pass, deterministic inverse-CDF fine samples merged with every 2nd
 coarse depth by comparison-count ranks, and a fine pass that reuses the
-coarse radiance at the kept depths. The stochastic branches (perturbed
-samples, sigma noise, an rng) belong to training and raise here.
+coarse radiance at the kept depths.
+
+Training renders stochastically: ``perturb`` jitters the coarse depths
+inside their bins and draws the fine samples from stratified u, and
+``radiance_field_noise_std`` adds gaussian noise to sigma before its relu in
+both passes. Those renders always take the exact path (the fused march is
+inference only), whose dense chain is the fused op of ``ops/mlp.py`` when the
+renderer is built with ``use_fused_mlp`` (JAX: ``use_pallas_mlp``). The four
+random tensors of such a render come from one place, ``draw_render_noise``,
+given a ``torch.Generator``; ``render_rays`` also takes its result, a
+``RenderNoise``, in the generator's place, which is how a test feeds the
+port another package's draws.
 
 State_dict names follow the reference ``Trainer``: ``model_coarse.*`` (the
 field) and ``headpose_skin_net.canonical_Wvolume.*`` (the volume decoder).
@@ -32,7 +42,7 @@ field) and ``headpose_skin_net.canonical_Wvolume.*`` (the volume decoder).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -50,6 +60,33 @@ from havatar_tpu_torch.ops.volume_render import (
     sample_pdf,
     volume_render_radiance_field,
 )
+
+
+class RenderNoise(NamedTuple):
+    """The four independent draws of one stochastic ``render_rays`` call
+    over [B, R] rays; an entry the call does not need is None."""
+    coarse_jitter: Optional[torch.Tensor]   # [B, R, S] uniform in [0, 1)
+    coarse_sigma: Optional[torch.Tensor]    # [B*R, S] standard normal
+    fine_u: Optional[torch.Tensor]          # [B*R, num_fine] uniform
+    fine_sigma: Optional[torch.Tensor]      # [B*R, S/2 + num_fine] normal
+
+
+def draw_render_noise(rng: torch.Generator, B: int, R: int, num_coarse: int,
+                      num_fine: int, perturb: bool, noise_std: float,
+                      device, dtype: torch.dtype = torch.float32
+                      ) -> RenderNoise:
+    """The draws ``render_rays`` needs, from ``rng`` (a generator on
+    ``device``), in the order coarse jitter, coarse sigma noise, fine u, fine
+    sigma noise."""
+    kw = dict(generator=rng, device=device, dtype=dtype)
+    fine = num_fine > 0
+    noisy = noise_std > 0.0
+    return RenderNoise(
+        torch.rand(B, R, num_coarse, **kw) if perturb else None,
+        torch.randn(B * R, num_coarse, **kw) if noisy else None,
+        torch.rand(B * R, num_fine, **kw) if perturb and fine else None,
+        torch.randn(B * R, (num_coarse + 1) // 2 + num_fine, **kw)
+        if noisy and fine else None)
 
 
 def _merge_ranks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -83,7 +120,8 @@ class AvatarRenderer(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  skin_compute_dtype: Optional[torch.dtype] = None,
                  use_fused_march: bool = False,
-                 use_quad_march: bool = True):
+                 use_quad_march: bool = True,
+                 use_fused_mlp: bool = False):
         super().__init__()
         self.xyz_bounding = tuple(tuple(float(v) for v in b)
                                   for b in xyz_bounding)
@@ -100,7 +138,7 @@ class AvatarRenderer(nn.Module):
             plane_feat_dim=plane_feat_dim, plane_res=plane_res,
             cond_res=cond_res, plane_middle_size=plane_middle_size,
             enc_mode=enc_mode, feat_dim=feat_dim,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, use_fused_mlp=use_fused_mlp)
         # skinning box: the field box with Y_lo = 0.3 * Y_hi
         xb, yb, zb = [list(b) for b in self.xyz_bounding]
         yb[0] = 0.3 * yb[1]
@@ -154,50 +192,82 @@ class AvatarRenderer(nn.Module):
                     background_prior: torch.Tensor, inv_head_T: torch.Tensor,
                     *, num_coarse: int = 64, num_fine: int = 16,
                     perturb: bool = False,
-                    radiance_field_noise_std: float = 0.0, rng=None,
+                    radiance_field_noise_std: float = 0.0,
+                    rng: Union[None, torch.Generator, RenderNoise] = None,
                     fixed_volume: Optional[torch.Tensor] = None
                     ) -> Dict[str, Optional[torch.Tensor]]:
         """planes [2, B, R', R', C]; ray_batch [B, R, 8] (o, d, near, far);
         background_prior [B, R, 3]; inv_head_T [B, 4, 3]. Returns the JAX
-        renderer's output dict. Only the deterministic march is ported:
-        ``perturb``, sigma noise or an ``rng`` raise."""
-        if perturb or radiance_field_noise_std != 0.0 or rng is not None:
-            raise NotImplementedError(
-                "perturbed samples, sigma noise and an rng are the "
-                "stochastic branches of render_rays; they come with the "
-                "training port. Inference passes perturb=False, "
-                "radiance_field_noise_std=0.0, rng=None.")
+        renderer's output dict. ``perturb`` and a positive
+        ``radiance_field_noise_std`` need ``rng``: a ``torch.Generator`` on
+        the rays' device, or the draws themselves as a ``RenderNoise``; such
+        a render takes the exact path whatever ``use_fused_march`` says."""
+        stochastic = perturb or radiance_field_noise_std > 0.0
+        if rng is not None and not isinstance(rng, (torch.Generator,
+                                                    RenderNoise)):
+            raise TypeError(f"rng must be a torch.Generator or a RenderNoise, "
+                            f"got {type(rng).__name__}")
+        if stochastic and rng is None:
+            raise ValueError("perturb and radiance_field_noise_std > 0 draw "
+                             "random numbers: pass rng (a torch.Generator or "
+                             "a RenderNoise)")
         skin_vol = self.skin_volume() if fixed_volume is None else fixed_volume
         args = (planes, ray_batch, background_prior, inv_head_T, num_coarse,
                 num_fine, skin_vol)
-        if self.use_fused_march:
+        if self.use_fused_march and rng is None:
             return self._render_rays_fused(*args)
-        return self._render_rays_exact(*args)
+        noise = rng
+        if isinstance(rng, torch.Generator):
+            B, R = ray_batch.shape[:2]
+            noise = draw_render_noise(
+                rng, B, R, num_coarse, num_fine, perturb,
+                radiance_field_noise_std, ray_batch.device, ray_batch.dtype)
+        return self._render_rays_exact(*args, perturb,
+                                       radiance_field_noise_std, noise)
 
     @staticmethod
-    def _coarse_depths(ray_batch: torch.Tensor, num_coarse: int):
+    def _coarse_depths(ray_batch: torch.Tensor, num_coarse: int,
+                       jitter: Optional[torch.Tensor] = None,
+                       perturb: bool = False):
+        """Evenly spaced depths in [near, far]; with ``perturb`` each moves
+        to ``jitter`` (uniform in [0, 1), [B, R, S]) of the way through its
+        bin between the neighbouring midpoints."""
         ro, rd = ray_batch[..., 0:3], ray_batch[..., 3:6]
         near, far = ray_batch[..., 6:7], ray_batch[..., 7:8]
         t_vals = torch.linspace(0.0, 1.0, num_coarse, dtype=ro.dtype,
                                 device=ro.device)
         z_vals = near * (1.0 - t_vals) + far * t_vals          # [B, R, S]
+        if perturb:
+            if jitter is None:
+                raise ValueError("perturb needs the coarse jitter draws")
+            mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            upper = torch.cat([mids, z_vals[..., -1:]], -1)
+            lower = torch.cat([z_vals[..., :1], mids], -1)
+            z_vals = lower + (upper - lower) * jitter.to(z_vals.dtype)
         pts = ro[..., None, :] + rd[..., None, :] * z_vals[..., :, None]
         return ro, rd, z_vals, pts
 
     def _render_rays_exact(self, planes, ray_batch, background_prior,
-                           inv_head_T, num_coarse, num_fine, skin_vol):
+                           inv_head_T, num_coarse, num_fine, skin_vol,
+                           perturb=False, noise_std=0.0,
+                           noise: Optional[RenderNoise] = None):
         """The field's dense chain on every sample, then
         ``volume_render_radiance_field``; the fine pass evaluates only the
         new samples and reuses the coarse radiance at the kept depths (the
-        field is a function of the point alone)."""
+        field is a function of the point alone; sigma noise is added in the
+        compositing, not in the field)."""
         B, R = ray_batch.shape[:2]
-        ro, rd, z_vals, pts = self._coarse_depths(ray_batch, num_coarse)
+        noise = noise or RenderNoise(None, None, None, None)
+        ro, rd, z_vals, pts = self._coarse_depths(
+            ray_batch, num_coarse, noise.coarse_jitter if perturb else None,
+            perturb)
         radiance = self._field_eval(pts, inv_head_T, planes, skin_vol)
         zf = z_vals.reshape(B * R, num_coarse)
         rdf = rd.reshape(B * R, 3)
         bgf = background_prior.reshape(B * R, 3)
         rgb_c, _, acc_c, weights, depth_c = volume_render_radiance_field(
-            radiance, zf, rdf, background_prior=bgf)
+            radiance, zf, rdf, background_prior=bgf,
+            radiance_field_noise_std=noise_std, noise=noise.coarse_sigma)
         out: Dict[str, Optional[torch.Tensor]] = {
             "rgb_coarse": rgb_c.reshape(B, R, -1),
             "depth_coarse": depth_c.reshape(B, R, 1),
@@ -209,9 +279,18 @@ class AvatarRenderer(nn.Module):
             return out
 
         z_mid = 0.5 * (zf[..., 1:] + zf[..., :-1])
-        z_samples = sample_pdf(z_mid, weights[..., 1:-1], num_fine).detach()
+        z_samples = sample_pdf(z_mid, weights[..., 1:-1], num_fine,
+                               det=not perturb, u01=noise.fine_u).detach()
         z_keep, rad_keep = zf[:, ::2], radiance[:, ::2]
-        ranks = _merge_ranks(z_keep, z_samples)
+        if perturb:
+            # jittered keeps and stratified samples are each ascending too,
+            # but a stable sort of the concat is what the JAX package takes
+            # here, and ties then break the same way
+            perm = torch.argsort(torch.cat([z_keep, z_samples], -1), dim=-1,
+                                 stable=True)
+            ranks = torch.argsort(perm, dim=-1, stable=True)
+        else:
+            ranks = _merge_ranks(z_keep, z_samples)
         z_new = z_samples.reshape(B, R, num_fine)
         pts_new = ro[..., None, :] + rd[..., None, :] * z_new[..., :, None]
         rad_new = self._field_eval(pts_new, inv_head_T, planes, skin_vol)
@@ -223,7 +302,8 @@ class AvatarRenderer(nn.Module):
         radiance_f = torch.empty_like(rad_cat).scatter_(
             1, ranks[..., None].expand_as(rad_cat), rad_cat)
         rgb_f, _, acc_f, weights_f, depth_f = volume_render_radiance_field(
-            radiance_f, z_all, rdf, background_prior=bgf)
+            radiance_f, z_all, rdf, background_prior=bgf,
+            radiance_field_noise_std=noise_std, noise=noise.fine_sigma)
         out["rgb_fine"] = rgb_f.reshape(B, R, -1)
         out["depth_fine"] = depth_f.reshape(B, R, 1)
         out["acc_fine"] = acc_f.reshape(B, R, 1)
@@ -317,8 +397,12 @@ class AvatarRenderer(nn.Module):
                        fixed_volume: Optional[torch.Tensor] = None):
         """Memory-bounded rendering: planes and the skinning volume are made
         once, then the ray axis goes through ``render_rays`` ``chunk_size``
-        rays at a time. Requires R % chunk_size == 0."""
+        rays at a time. Requires R % chunk_size == 0. ``rng`` is None or a
+        generator, which every chunk draws from in turn."""
         B, R = ray_batch.shape[:2]
+        if isinstance(rng, RenderNoise):
+            raise TypeError("render_chunked draws per chunk: pass a "
+                            "torch.Generator, not a RenderNoise")
         if R % chunk_size:
             raise ValueError(f"R={R} is not a multiple of chunk_size="
                              f"{chunk_size}; pad the rays")
@@ -344,3 +428,11 @@ class AvatarRenderer(nn.Module):
         acc = out["acc_fine"] if out["acc_fine"] is not None else out["acc_coarse"]
         B, s = rgb.shape[0], self.render_size
         return rgb.reshape(B, s, s, -1), acc.reshape(B, s, s, 1)
+
+
+def latent_code_loss(latent_codes: torch.Tensor,
+                     latent_code: torch.Tensor) -> torch.Tensor:
+    """Pull the selected codes [B, D] towards the mean of all codes
+    [N, D], the mean taken as a constant."""
+    mean = latent_codes.mean(dim=0, keepdim=True).detach()
+    return (latent_code - mean).square().mean()

@@ -3,8 +3,13 @@
 Port of ``havatar_tpu/models/skinning.py``: ``VolumeDecoder`` (a fixed
 random seed decoded by six upsample-conv-instance-norm-relu blocks to a
 sigmoid volume, output channels (x, 1-x)), ``fix_canonical_volume`` (the
-inference clamping) and ``SkinningField`` (each point under the identity
-and the inverse-head transform, weighted by the volume sampled there).
+inference clamping), ``SkinningField`` (each point under the identity
+and the inverse-head transform, weighted by the volume sampled there) and
+``make_volume_pts`` (the grid the volume's pretraining samples).
+
+The sample points of every lookup here are data (box-warped ray samples or
+grid points that carry no graph), so autograd computes no gradient for them:
+what the JAX package gets with ``coords_grad=False``.
 
 Volumes are NCDHW: [1, 2, D, H, W]. State_dict names follow the reference:
 ``filters.{i}.up.1`` (Conv3d), ``final_conv``, buffer ``init_lc``
@@ -107,3 +112,28 @@ class SkinningField(nn.Module):
         w = torch.cat(weights, dim=-1).to(pts.dtype)             # [B, N, 2]
         w = w / (w.sum(dim=-1, keepdim=True) + 1e-8)
         return w[..., 0:1] * pts_inv[0] + w[..., 1:2] * pts_inv[1]
+
+    def sample_weight(self, pts: torch.Tensor, channel: int = 1,
+                      volume: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One weight channel of the volume (decoded here when ``volume`` is
+        None) at [N, 3] world points, border-padded: [N, 1]."""
+        vol = self.volume() if volume is None else volume
+        vol = vol.permute(0, 2, 3, 4, 1)[..., channel:channel + 1]
+        return grid_sample_3d(vol.contiguous(), self.warp(pts[None]))[0]
+
+
+def make_volume_pts(steps: int = 20, jitter: Optional[torch.Tensor] = None,
+                    warp: Optional[BoxWarp] = None,
+                    device=None) -> torch.Tensor:
+    """A regular grid of ``steps``^3 points over [-1, 1]^3 ([steps^3, 3],
+    x slowest), each moved by ``jitter`` (uniform draws in [0, 1),
+    [steps^3, 3]) of one grid step when given, and un-warped to world space
+    when ``warp`` is given."""
+    ax = torch.linspace(-1.0, 1.0, steps, device=device)
+    pts = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"),
+                      -1).reshape(-1, 3)
+    if jitter is not None:
+        pts = pts + jitter.to(pts) * (2.0 / (steps - 1))
+    if warp is not None:
+        pts = warp.inv(pts)
+    return pts

@@ -41,3 +41,11 @@ class BoxWarp:
         trans = torch.tensor(self.trans, dtype=torch.float32,
                              device=coords.device)
         return coords * scale + trans
+
+    def inv(self, coords: torch.Tensor) -> torch.Tensor:
+        """The sampling cube back to world space: (coords - trans) / scale."""
+        scale = torch.tensor(self.scales, dtype=torch.float32,
+                             device=coords.device)
+        trans = torch.tensor(self.trans, dtype=torch.float32,
+                             device=coords.device)
+        return (coords - trans) / scale

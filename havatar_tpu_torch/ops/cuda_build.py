@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/`` at the root of the checkout (git ignores it),
 then loaded with ``ctypes``. The library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and an unchanged one is
-reused. Nothing here runs at import time: a library is built on its first
-CUDA use, and importing needs no ``nvcc``.
+source, of every ``csrc/*.cuh`` header (the sources share device code
+through them) and of the flags, so an edited source or header is rebuilt and
+an unchanged one is reused. Nothing here runs at import time: a library is
+built on its first CUDA use, and importing needs no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

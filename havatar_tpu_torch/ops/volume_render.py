@@ -1,8 +1,10 @@
-"""Alpha compositing and deterministic inverse-CDF sampling.
+"""Alpha compositing and hierarchical inverse-CDF sampling.
 
 Port of ``havatar_tpu/ops/volume_render.py``: ``cumprod_exclusive``,
-``volume_render_radiance_field`` (noise-free; the tests' compositing oracle)
-and the deterministic branch of ``sample_pdf``.
+``volume_render_radiance_field`` (with training's gaussian noise on sigma)
+and ``sample_pdf`` in its deterministic and its stratified branch. The random
+numbers are arguments: the caller draws them (``models/renderer.py:
+draw_render_noise``), so a test can hand in another package's draws.
 """
 
 from __future__ import annotations
@@ -23,10 +25,14 @@ def volume_render_radiance_field(
     depth_values: torch.Tensor,
     ray_directions: torch.Tensor,
     background_prior: Optional[torch.Tensor] = None,
+    radiance_field_noise_std: float = 0.0,
+    noise: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
            torch.Tensor]:
     """radiance [R, S, C+1] (rgb 0:3 through sigmoid, features linear,
-    sigma last), depths [R, S], un-normalized directions [R, 3].
+    sigma last), depths [R, S], un-normalized directions [R, 3]. With
+    ``radiance_field_noise_std > 0``, ``noise`` [R, S] (standard normal
+    draws) times that std is added to sigma before its relu.
 
     Returns (rgb_map [R, C], disp_map [R], acc_map [R], weights [R, S],
     depth_map [R]); the background is composited onto rgb only.
@@ -35,7 +41,12 @@ def volume_render_radiance_field(
     dists = torch.cat([dists, dists[..., -1:]], dim=-1)
     dists = dists * torch.linalg.norm(ray_directions, dim=-1)[..., None]
 
-    sigma = torch.relu(radiance_field[..., -1])
+    sigma = radiance_field[..., -1]
+    if radiance_field_noise_std > 0.0:
+        if noise is None:
+            raise ValueError("sigma noise needs its draws: pass noise [R, S]")
+        sigma = sigma + noise.to(sigma.dtype) * radiance_field_noise_std
+    sigma = torch.relu(sigma)
     alpha = 1.0 - torch.exp(-sigma * dists)
     weights = alpha * cumprod_exclusive(1.0 - alpha + 1e-10)
 
@@ -54,9 +65,12 @@ def volume_render_radiance_field(
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
-               num_samples: int) -> torch.Tensor:
-    """Deterministic inverse-CDF sampling: ``num_samples`` evenly spaced u
-    in [0, 1] through the CDF of ``weights + 1e-5``.
+               num_samples: int, det: bool = True,
+               u01: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse-CDF sampling of ``num_samples`` depths through the CDF of
+    ``weights + 1e-5``. ``det``: evenly spaced u in [0, 1]; else stratified,
+    u_i = i/n + u01_i * (1/n - 1e-6) with ``u01`` [R, num_samples] uniform
+    draws in [0, 1).
 
     bins: [R, K] midpoints; weights: [R, K-1]. Returns [R, num_samples].
     The bin lookup is searchsorted(cdf, u, side='right'); a CDF step below
@@ -67,9 +81,18 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # [R, K]
     K = cdf.shape[-1]
-    u = torch.linspace(0.0, 1.0, num_samples, dtype=weights.dtype,
-                       device=weights.device)
-    u = u.expand(cdf.shape[:-1] + (num_samples,)).contiguous()
+    if det:
+        u = torch.linspace(0.0, 1.0, num_samples, dtype=weights.dtype,
+                           device=weights.device)
+        u = u.expand(cdf.shape[:-1] + (num_samples,)).contiguous()
+    else:
+        if u01 is None:
+            raise ValueError("stratified sampling needs its draws: pass u01 "
+                             "[R, num_samples]")
+        step = 1.0 / num_samples
+        base = torch.arange(num_samples, dtype=weights.dtype,
+                            device=weights.device) * step
+        u = (base[None, :] + u01.to(weights.dtype) * (step - 1e-6)).contiguous()
 
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = (inds - 1).clamp(min=0)

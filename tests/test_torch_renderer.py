@@ -598,12 +598,15 @@ def test_reduced_input_fused_bf16_against_jax_on_the_golden_subset():
                                     dict(radiance_field_noise_std=0.1),
                                     dict(rng=0)])
 def test_stochastic_arguments_raise(kwargs, fused):
-    """perturb, sigma noise and an rng are training's; asking for one
-    raises in every configuration instead of rendering without it."""
+    """perturb and sigma noise draw random numbers: asking for one without
+    an rng raises in every configuration instead of rendering without it,
+    and so does an rng that is neither a torch.Generator nor the draws
+    themselves (tests/test_torch_train.py renders with both)."""
     _, sc, port = _tiny_pair()
     r = port(use_fused_march=fused)
-    with pytest.raises(NotImplementedError, match="training"):
+    error = TypeError if "rng" in kwargs else ValueError
+    with pytest.raises(error, match="rng"):
         r(*_port_args(sc), num_coarse=4, num_fine=2, **kwargs)
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(error, match="rng"):
         r.render_chunked(*_port_args(sc), chunk_size=16, num_coarse=4,
                          num_fine=2, **kwargs)
