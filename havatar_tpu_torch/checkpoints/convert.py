@@ -15,7 +15,8 @@ reference PyTorch names and layouts:
 
 Covers the renderer (field MLP, the plane generators of all three
 ``enc_mode``s, the skinning volume decoder and its ``init_lc`` buffer),
-``StyleUNetSR``, and the flat
+``StyleUNetSR``, ``WaveletDiscriminator`` (the inverse of
+``convert_discriminator``), and the flat
 ``field.*`` / ``skin.*`` keys of ``tests/golden/render_production.npz``.
 """
 
@@ -144,6 +145,33 @@ def _two_head_generator(tree: Mapping, prefix: str) -> StateDict:
     return sd
 
 
+def _discriminator(tree: Mapping) -> StateDict:
+    """WaveletDiscriminator params -> state_dict entries: ``from_rgb{i}``
+    and the last ``from_rgb_final`` become ``from_rgbs.{i}``, ``conv{i}``
+    (ConvBlocks) ``convs.{i}``, ``final_linear{i}`` ``final_linear.{i}``."""
+    n_blocks = sum(1 for k in tree if re.fullmatch(r"conv\d+", k))
+    sd: StateDict = {}
+    for key, sub in tree.items():
+        m = re.fullmatch(r"([a-z_]+?)(\d*)", key)
+        kind, n = m.group(1), m.group(2)
+        if key == "from_rgb_final" or (kind == "from_rgb" and n):
+            i = n_blocks if key == "from_rgb_final" else int(n)
+            sd.update(_conv_layer(sub["conv"], f"from_rgbs.{i}.conv",
+                                  downsample=False))
+        elif kind == "conv" and n:
+            for c, down in (("conv1", False), ("conv2", True)):
+                sd.update(_conv_layer(sub[c], f"convs.{n}.{c}",
+                                      downsample=down))
+        elif key == "final_conv":
+            sd.update(_conv_layer(sub, "final_conv", downsample=False))
+        elif kind == "final_linear" and n:
+            sd.update(_linear(sub, f"final_linear.{n}"))
+        else:
+            raise KeyError(f"no port counterpart for discriminator key "
+                           f"{key!r}")
+    return sd
+
+
 def _volume_decoder(params: Mapping, buffers: Mapping,
                     prefix: str) -> StateDict:
     sd: StateDict = {}
@@ -218,6 +246,8 @@ def from_jax_params(variables: Mapping) -> StateDict:
       "buffers": ...}`` -> ``AvatarRenderer`` keys;
     * StyleUNetSR params, bare or as ``{"params": ...}`` -> ``StyleUNetSR``
       keys;
+    * WaveletDiscriminator params, bare or as ``{"params": ...}`` ->
+      ``WaveletDiscriminator`` keys;
     * a flat mapping with ``field.*`` / ``skin.*`` keys (the production
       golden) -> the field MLP and skinning-decoder keys of
       ``AvatarRenderer``.
@@ -232,4 +262,6 @@ def from_jax_params(variables: Mapping) -> StateDict:
     params = variables.get("params", variables)
     if "field" in params or "skinning" in params:
         return renderer_state_dict(variables)
+    if "final_linear0" in params:
+        return _discriminator(params)
     return _generator(params, "")

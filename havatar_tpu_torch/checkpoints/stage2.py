@@ -8,6 +8,11 @@ and discriminator ``state_dict``s) and ``iter``. The port's modules keep the
 reference's parameter names, so loading is ``load_state_dict``, not a
 conversion. Counterpart of ``havatar_tpu/checkpoints/convert.py:
 load_torch_checkpoint, detect_nerf_enc_mode, convert_stage2_checkpoint``.
+
+A training checkpoint (``stage2_training_checkpoint``) holds ``g`` and
+``d`` too, and the three optimizers' states under the reference's names
+(``nerf_optimizer``, ``g_optim``, ``d_optim``) for a resume; ``iter`` is
+then the number of finished iterations.
 """
 
 from __future__ import annotations
@@ -44,6 +49,39 @@ def stage2_checkpoint(renderer: torch.nn.Module, g_ema: torch.nn.Module,
     return {"nerf_render": cpu(renderer.state_dict()),
             "latent_codes": latent_codes.detach().cpu().clone(),
             "g_ema": cpu(g_ema.state_dict()), "iter": int(iteration)}
+
+
+def stage2_training_checkpoint(state, iteration: int) -> Dict[str, Any]:
+    """The dict to save from a ``train/stage2.py:Stage2State`` after
+    ``iteration`` finished iterations."""
+    out = stage2_checkpoint(state.renderer, state.g_ema, state.latent_codes,
+                            iteration)
+    out.update({k: {n: v.detach().cpu().clone()
+                    for n, v in m.state_dict().items()}
+                for k, m in (("g", state.generator),
+                             ("d", state.discriminator))})
+    out.update({"nerf_optimizer": state.nerf_opt.state_dict(),
+                "g_optim": state.g_opt.state_dict(),
+                "d_optim": state.d_opt.state_dict(), "step": state.step})
+    return out
+
+
+def restore_stage2_training(state, ckpt: Mapping[str, Any]) -> int:
+    """Load a training checkpoint dict into ``state`` in place; returns the
+    iteration to resume at."""
+    nerf = dict(ckpt["nerf_render"])
+    nerf.pop("latent_codes", None)
+    state.renderer.load_state_dict(nerf)
+    state.generator.load_state_dict(ckpt["g"])
+    state.discriminator.load_state_dict(ckpt["d"])
+    state.g_ema.load_state_dict(ckpt["g_ema"])
+    with torch.no_grad():
+        state.latent_codes.copy_(ckpt["latent_codes"])
+    state.nerf_opt.load_state_dict(ckpt["nerf_optimizer"])
+    state.g_opt.load_state_dict(ckpt["g_optim"])
+    state.d_opt.load_state_dict(ckpt["d_optim"])
+    state.step = int(ckpt.get("step", ckpt["iter"]))
+    return int(ckpt["iter"])
 
 
 def load_stage2_checkpoint(path: str) -> Dict[str, Any]:

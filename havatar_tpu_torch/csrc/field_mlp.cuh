@@ -1,6 +1,8 @@
 // The field MLP on tensor cores, shared by the CUDA sources that run it
-// (march.cu: the four fused march kernels; mlp.cu: the bf16 forward of the
-// fused dense chain). A persistent block stages the five weight matrices in
+// (march.cu: the four fused march kernels; mlp.cu: the bf16 forwards of the
+// fused dense chain and of the quad field op), with the two input stages
+// (a copy of reduced rows, or the corner reduction of raw quad rows). A
+// persistent block stages the five weight matrices in
 // shared memory once (bf16, rows padded so MMA fragment loads hit distinct
 // banks); each of its 8 warps then owns 16 rows of a 128-row tile and runs
 // the chain on them with mma.sync m16n8k16 (bf16 in, f32 accumulate),
@@ -167,6 +169,47 @@ __device__ void copy_inputs(unsigned char* smem, const Layout& L,
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (p < valid) v = src[i];
     *reinterpret_cast<uint4*>(sX + p * L.ldx + ch * 8) = v;
+  }
+}
+
+// One warp: corner-reduce its 16 samples' quad rows into MLP input rows
+// [xy (C) | zy (C) | posenc (n_pe)] in bf16 (the block order that the
+// permuted layer0 expects). Rows at or past `valid` are zero.
+__device__ void build_inputs(unsigned char* smem, const Layout& L,
+                             const bf16* __restrict__ quads,
+                             const float* __restrict__ aux, long pt0,
+                             int valid, int C, int n_pe, int warp, int lane) {
+  bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
+  const int naux = n_pe + 8;
+  for (int i = 0; i < 16; ++i) {
+    const int p = warp * 16 + i;
+    bf16* xr = sX + p * L.ldx;
+    if (p >= valid) {
+      for (int c = lane; c < L.fin; c += 32) xr[c] = __float2bfloat16(0.f);
+      continue;
+    }
+    const bf16* q = quads + (pt0 + p) * long(8 * C);
+    const float* a = aux + (pt0 + p) * long(naux);
+    float w[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = a[n_pe + k];
+    for (int c2 = lane; c2 < C / 2; c2 += 32) {
+      float xy0 = 0.f, xy1 = 0.f, zy0 = 0.f, zy1 = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bf162 v = *reinterpret_cast<const bf162*>(q + k * C + 2 * c2);
+        const bf162 u =
+            *reinterpret_cast<const bf162*>(q + (4 + k) * C + 2 * c2);
+        xy0 += __bfloat162float(v.x) * w[k];
+        xy1 += __bfloat162float(v.y) * w[k];
+        zy0 += __bfloat162float(u.x) * w[4 + k];
+        zy1 += __bfloat162float(u.y) * w[4 + k];
+      }
+      *reinterpret_cast<bf162*>(xr + 2 * c2) = __floats2bfloat162_rn(xy0, xy1);
+      *reinterpret_cast<bf162*>(xr + C + 2 * c2) =
+          __floats2bfloat162_rn(zy0, zy1);
+    }
+    for (int j = lane; j < n_pe; j += 32) xr[2 * C + j] = __float2bfloat16(a[j]);
   }
 }
 

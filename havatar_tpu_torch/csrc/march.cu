@@ -55,47 +55,6 @@
 
 namespace {
 
-// One warp: corner-reduce its 16 samples' quad rows into MLP input rows
-// [xy (C) | zy (C) | posenc (n_pe)] in bf16 (the block order that the
-// permuted layer0 expects). Rows at or past `valid` are zero.
-__device__ void build_inputs(unsigned char* smem, const Layout& L,
-                             const bf16* __restrict__ quads,
-                             const float* __restrict__ aux, long pt0,
-                             int valid, int C, int n_pe, int warp, int lane) {
-  bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
-  const int naux = n_pe + 8;
-  for (int i = 0; i < 16; ++i) {
-    const int p = warp * 16 + i;
-    bf16* xr = sX + p * L.ldx;
-    if (p >= valid) {
-      for (int c = lane; c < L.fin; c += 32) xr[c] = __float2bfloat16(0.f);
-      continue;
-    }
-    const bf16* q = quads + (pt0 + p) * long(8 * C);
-    const float* a = aux + (pt0 + p) * long(naux);
-    float w[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) w[k] = a[n_pe + k];
-    for (int c2 = lane; c2 < C / 2; c2 += 32) {
-      float xy0 = 0.f, xy1 = 0.f, zy0 = 0.f, zy1 = 0.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const bf162 v = *reinterpret_cast<const bf162*>(q + k * C + 2 * c2);
-        const bf162 u =
-            *reinterpret_cast<const bf162*>(q + (4 + k) * C + 2 * c2);
-        xy0 += __bfloat162float(v.x) * w[k];
-        xy1 += __bfloat162float(v.y) * w[k];
-        zy0 += __bfloat162float(u.x) * w[4 + k];
-        zy1 += __bfloat162float(u.y) * w[4 + k];
-      }
-      *reinterpret_cast<bf162*>(xr + 2 * c2) = __floats2bfloat162_rn(xy0, xy1);
-      *reinterpret_cast<bf162*>(xr + C + 2 * c2) =
-          __floats2bfloat162_rn(zy0, zy1);
-    }
-    for (int j = lane; j < n_pe; j += 32) xr[2 * C + j] = __float2bfloat16(a[j]);
-  }
-}
-
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }

@@ -14,7 +14,8 @@ output (conv(x * s, W) == conv(x, W diag(s))), so one shared weight serves
 the batch.
 
 Inference runs with zero noise: ``NoiseInjection`` without a noise tensor
-adds nothing.
+adds nothing; training hands each StyledConv its noise tensor.
+``minibatch_stddev`` is the discriminator's batch-statistics channel.
 """
 
 from __future__ import annotations
@@ -285,3 +286,20 @@ class ToRGB(nn.Module):
                 skip = upsample2d(skip, self.blur_kernel)
             out = out + skip
         return out
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
+                     num_features: int = 1) -> torch.Tensor:
+    """Append the minibatch-stddev channel(s): x [B, C, H, W] ->
+    [B, C + num_features, H, W]. Batch items b, b + B/g, ... form a group;
+    the channels split as [num_features, C / num_features]; each feature's
+    stddev over the group (biased variance + 1e-8), averaged over its
+    channels and the image, is broadcast over H x W. B must be a multiple
+    of min(B, group_size)."""
+    B, C, H, W = x.shape
+    group = min(B, group_size)
+    y = x.reshape(group, -1, num_features, C // num_features, H, W)
+    std = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)   # [B/g, F, C/F, H, W]
+    std = std.mean(dim=(2, 3, 4)).repeat(group, 1)          # [B, F]
+    return torch.cat([x, std[:, :, None, None].expand(B, num_features, H, W)
+                      .to(x.dtype)], 1)

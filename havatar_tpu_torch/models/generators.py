@@ -6,7 +6,10 @@ inside, with the reference ``state_dict`` names (``style.{i}``, ``conv_in``,
 ``from_rgbs``, ``cond_convs``, ``comb_convs``, ``input``, ``conv1``,
 ``convs``, ``to_rgbs``, ``conv_out``; the two-head generator's second head
 carries the suffix ``1``: ``conv_in1``, ``cond_convs1``, ``comb_convs1``,
-``convs_head1``, ``conv_out1``). Zero noise, one style per call (no mixing).
+``convs_head1``, ``conv_out1``). The plane generators run with zero noise
+and one style; ``StyleUNetSR`` also takes two styles with an injection index
+(style mixing) and a noise tensor for each of its StyledConvs, as stage-2
+training calls it.
 
 ``compute_dtype`` is the dtype the convolutions run in (bfloat16 for the
 GPU frame); parameters stay float32.
@@ -15,7 +18,7 @@ GPU frame); parameters stay float32.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -255,8 +258,15 @@ class StyleUNetSR(_CondEncoder):
     """StyleUNet super-resolution generator (reference ``SWGAN_unet``):
     U-Net encoder over the feature image + wavelet StyleGAN2 decoder.
 
-    forward(styles [B, style_dim], cond_img [B, inp_ch, inp_size, inp_size])
-      -> [B, out_ch, out_size, out_size] float32.
+    forward(styles [B, style_dim] or a list of one or two,
+            cond_img [B, inp_ch, inp_size, inp_size], noise=None,
+            inject_index=None) -> [B, out_ch, out_size, out_size] float32.
+
+    With two styles, decoder layer i (of ``n_latent``) takes the first
+    style's latent where i < inject_index (default n_latent // 2) and the
+    second's from there on. ``noise`` is None (no noise) or one tensor
+    [B, 1, r, r] for each StyledConv in order (``noise_shapes``;
+    ``draw_noise`` draws them).
     """
 
     def __init__(self, inp_size: int = 128, inp_ch: int = 64,
@@ -270,6 +280,9 @@ class StyleUNetSR(_CondEncoder):
         self.style_dim = style_dim
         log_size = int(math.log2(out_size)) - 1
         mid_log = int(math.log2(middle_size))
+        self.n_latent = log_size * 2 - (mid_log * 2 - 1) + 1
+        self.noise_res = [2 ** r for r in range(mid_log + 1, log_size + 1)
+                          for _ in range(2)]
         self.style = StyleMLP(style_dim, style_dim, n_mlp, lr_mlp)
         comb_channels = self._build_encoder(
             ch, inp_size, inp_ch, range(int(math.log2(inp_size)) - 2,
@@ -299,19 +312,44 @@ class StyleUNetSR(_CondEncoder):
             self.to_rgbs.append(ToRGB(out_channel, out_ch * 4, style_dim))
             in_channel, i = out_channel, i + 2
 
-    def forward(self, styles: torch.Tensor,
-                cond_img: torch.Tensor) -> torch.Tensor:
+    def noise_shapes(self, batch: int) -> List[tuple]:
+        """The shape of each StyledConv's noise tensor, in call order."""
+        return [(batch, 1, r, r) for r in self.noise_res]
+
+    def draw_noise(self, batch: int, rng: torch.Generator, device,
+                   dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+        """Standard normal noise for every StyledConv, from ``rng``."""
+        return [torch.randn(s, generator=rng, device=device, dtype=dtype)
+                for s in self.noise_shapes(batch)]
+
+    def forward(self, styles, cond_img: torch.Tensor,
+                noise: Optional[Sequence[torch.Tensor]] = None,
+                inject_index: Optional[int] = None) -> torch.Tensor:
         cdt = self.compute_dtype
-        w = self.style(styles.to(cdt))
+        if isinstance(styles, torch.Tensor):
+            styles = [styles]
+        ws = [self.style(s.to(cdt)) for s in styles]
+        if len(ws) == 1:
+            split = self.n_latent
+        elif inject_index is None:
+            split = self.n_latent // 2
+        else:
+            split = int(inject_index)
+
+        def latent(i):
+            return ws[0] if i < split else ws[-1]
+
+        noise = [None] * len(self.convs) if noise is None else list(noise)
         cond_list = self._encode(cond_img.to(cdt))
         out, skip = None, None
         for k, ci in enumerate(self.inject):
+            i = 2 * k
             if k == 0:
                 out = self.comb_convs[str(ci)](cond_list[ci])
             elif ci is not None:
                 out = self.comb_convs[str(ci)](
                     torch.cat([out, cond_list[ci]], dim=1))
-            out = self.convs[2 * k](out, w)
-            out = self.convs[2 * k + 1](out, w)
-            skip = self.to_rgbs[k](out, w, skip)
+            out = self.convs[i](out, latent(i), noise[i])
+            out = self.convs[i + 1](out, latent(i + 1), noise[i + 1])
+            skip = self.to_rgbs[k](out, latent(i + 2), skip)
         return inverse_haar_transform(skip.float())

@@ -11,7 +11,10 @@ layers:
 * ``forward``: plane features ++ posenc through the dense chain (sh_deg =
   0), the exact renderer's field evaluation: five ``F.linear`` calls, or
   with ``use_fused_mlp`` the fused op ``ops/mlp.py:fused_mlp_chain``, whose
-  forward and backward are one CUDA kernel each (JAX: ``use_pallas_mlp``);
+  forward and backward are one CUDA kernel each (JAX: ``use_pallas_mlp``),
+  or with ``use_fused_quad`` (which takes precedence) the op
+  ``ops/mlp_quad.py:field_radiance_quad`` on each batch item, whose kernels
+  also take in the corner reduction (JAX: ``use_pallas_mlp_quad``);
 * ``field_inputs``: that chain's input alone, [B, N, 2C + posenc] in the
   compute dtype and the reference's interleaved channel order, for the
   reduced-input march kernels (``march_params(dtype, permute=False)``);
@@ -42,6 +45,7 @@ from havatar_tpu_torch.ops.grid_sample import (
 )
 from havatar_tpu_torch.ops.march import MarchParams, march_params
 from havatar_tpu_torch.ops.mlp import fused_mlp_chain
+from havatar_tpu_torch.ops.mlp_quad import field_radiance_quad
 
 
 class DoublePlaneNeRFField(nn.Module):
@@ -52,9 +56,12 @@ class DoublePlaneNeRFField(nn.Module):
                  enc_mode: str = "split", hidden: int = 128,
                  feat_dim: int = 64,
                  compute_dtype: torch.dtype = torch.float32,
-                 use_fused_mlp: bool = False):
+                 use_fused_mlp: bool = False, use_fused_quad: bool = False,
+                 sorted_scatter: bool = False):
         super().__init__()
         self.use_fused_mlp = use_fused_mlp
+        self.use_fused_quad = use_fused_quad
+        self.sorted_scatter = sorted_scatter   # the quad op's plane splat
         self.num_encoding_fn_xyz = num_encoding_fn_xyz
         self.plane_feat_dim = plane_feat_dim
         self.enc_mode = enc_mode
@@ -146,6 +153,15 @@ class DoublePlaneNeRFField(nn.Module):
                             posenc_dim(self.num_encoding_fn_xyz), dtype,
                             permute=permute)
 
+    def dense_params(self) -> Tuple[torch.Tensor, ...]:
+        """The five dense layers' tensors in the fused ops' order (w0, b0,
+        w1, b1, w_feat, b_feat, w_alpha, b_alpha, w_rgb, b_rgb), as they are
+        (not detached): an op's backward fills their ``.grad``."""
+        l0, l1 = self.layers_xyz
+        return (l0.weight, l0.bias, l1.weight, l1.bias, self.fc_rgbFeat.weight,
+                self.fc_rgbFeat.bias, self.fc_alpha.weight,
+                self.fc_alpha.bias, self.fc_rgb.weight, self.fc_rgb.bias)
+
     def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
                 planes: torch.Tensor) -> torch.Tensor:
         """[B, N, 3] canonical points -> radiance [B, N, 3 + feat + 1] f32
@@ -156,17 +172,18 @@ class DoublePlaneNeRFField(nn.Module):
         def dense(lin, x):
             return F.linear(x, lin.weight.to(cdt), lin.bias.to(cdt))
 
+        if self.use_fused_quad:
+            # one op call a batch item, on that item's planes
+            warped = self.gridwarper(pts)
+            pe = positional_encoding(pts, self.num_encoding_fn_xyz).float()
+            return torch.stack([field_radiance_quad(
+                planes[0][b], planes[1][b], warped[b], pe[b],
+                *self.dense_params(), sorted_scatter=self.sorted_scatter)
+                for b in range(pts.shape[0])])
         x = self.field_inputs(pts, planes)
         if self.use_fused_mlp:
-            # the parameters go in as they are (not detached): the op's
-            # backward fills their .grad
             B, N, fin = x.shape
-            l0, l1 = self.layers_xyz
-            out = fused_mlp_chain(
-                x.reshape(B * N, fin), l0.weight, l0.bias, l1.weight,
-                l1.bias, self.fc_rgbFeat.weight, self.fc_rgbFeat.bias,
-                self.fc_alpha.weight, self.fc_alpha.bias, self.fc_rgb.weight,
-                self.fc_rgb.bias)
+            out = fused_mlp_chain(x.reshape(B * N, fin), *self.dense_params())
             return out.reshape(B, N, -1)
         x = torch.relu(dense(self.layers_xyz[0], x))
         x = torch.relu(dense(self.layers_xyz[1], x))

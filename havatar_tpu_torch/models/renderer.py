@@ -30,7 +30,9 @@ inside their bins and draws the fine samples from stratified u, and
 ``radiance_field_noise_std`` adds gaussian noise to sigma before its relu in
 both passes. Those renders always take the exact path (the fused march is
 inference only), whose dense chain is the fused op of ``ops/mlp.py`` when the
-renderer is built with ``use_fused_mlp`` (JAX: ``use_pallas_mlp``). The four
+renderer is built with ``use_fused_mlp`` (JAX: ``use_pallas_mlp``), or the
+fused quad op of ``ops/mlp_quad.py`` with ``use_fused_quad`` (JAX:
+``use_pallas_mlp_quad``; it takes precedence). The four
 random tensors of such a render come from one place, ``draw_render_noise``,
 given a ``torch.Generator``; ``render_rays`` also takes its result, a
 ``RenderNoise``, in the generator's place, which is how a test feeds the
@@ -121,7 +123,9 @@ class AvatarRenderer(nn.Module):
                  skin_compute_dtype: Optional[torch.dtype] = None,
                  use_fused_march: bool = False,
                  use_quad_march: bool = True,
-                 use_fused_mlp: bool = False):
+                 use_fused_mlp: bool = False,
+                 use_fused_quad: bool = False,
+                 sorted_scatter: bool = False):
         super().__init__()
         self.xyz_bounding = tuple(tuple(float(v) for v in b)
                                   for b in xyz_bounding)
@@ -138,7 +142,8 @@ class AvatarRenderer(nn.Module):
             plane_feat_dim=plane_feat_dim, plane_res=plane_res,
             cond_res=cond_res, plane_middle_size=plane_middle_size,
             enc_mode=enc_mode, feat_dim=feat_dim,
-            compute_dtype=compute_dtype, use_fused_mlp=use_fused_mlp)
+            compute_dtype=compute_dtype, use_fused_mlp=use_fused_mlp,
+            use_fused_quad=use_fused_quad, sorted_scatter=sorted_scatter)
         # skinning box: the field box with Y_lo = 0.3 * Y_hi
         xb, yb, zb = [list(b) for b in self.xyz_bounding]
         yb[0] = 0.3 * yb[1]

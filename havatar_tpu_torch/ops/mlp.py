@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -111,12 +111,13 @@ def fused_mlp_chain_plain(x: torch.Tensor, *params: torch.Tensor
 
 
 def fused_mlp_chain_bwd_plain(x: torch.Tensor, g: torch.Tensor,
-                              *params: torch.Tensor
+                              *params: torch.Tensor,
+                              dx_dtype: Optional[torch.dtype] = None
                               ) -> Tuple[torch.Tensor, Params]:
     """Plain twin of the backward kernel, its arithmetic written out (no
-    autograd): x [N, Fin], output cotangent g [N, 3 + cf + 1] -> (dx in x's
-    dtype, the ten parameter gradients in each parameter's dtype and
-    layout)."""
+    autograd): x [N, Fin], output cotangent g [N, 3 + cf + 1] -> (dx in
+    ``dx_dtype``, x's dtype by default, the ten parameter gradients in each
+    parameter's dtype and layout)."""
     _check_shapes(x, params)
     w0, b0, w1, b1, wf, bf, wa, ba, wr, br = params
     f, cdt = torch.float32, x.dtype
@@ -142,7 +143,7 @@ def fused_mlp_chain_bwd_plain(x: torch.Tensor, g: torch.Tensor,
     da1c = r(da1)
     da0 = torch.where(a0 > 0, da1c @ W1, torch.zeros_like(a0))
     da0c = r(da0)
-    dx = (da0c @ W0).to(x.dtype)
+    dx = (da0c @ W0).to(dx_dtype or x.dtype)
     dwh, dbh = dfac.T @ h1, dfa.sum(0)
     grads = (da0c.T @ xf, da0.sum(0), da1c.T @ h0, da1.sum(0),
              dwh[:cf], dbh[:cf], dwh[cf:], dbh[cf:],

@@ -59,9 +59,11 @@ def build_renderer(cfg, **overrides) -> AvatarRenderer:
         render_size=cfg.models.StyleUnet.inp_size,
         cond_res=cfg.dataset.cond_render_res,
         # the fused dense chain (forward and backward CUDA kernels,
-        # ops/mlp.py); the key is the JAX package's, so one config file
-        # serves both
+        # ops/mlp.py), and the fused gather + corner reduction + chain
+        # (ops/mlp_quad.py), which takes precedence; the keys are the JAX
+        # package's, so one config file serves both
         use_fused_mlp=bool(cfg.models.get("use_pallas_mlp", False)),
+        use_fused_quad=bool(cfg.models.get("use_pallas_mlp_quad", False)),
     )
     kw.update(overrides)
     return AvatarRenderer(**kw)
