@@ -72,11 +72,20 @@ with a non-zero exit at the first failure:
    gradient; an iteration's time, its split by CUDA events, the peak
    device memory and a torch.profiler trace; the trained checkpoint
    served for two items through ``havatar_tpu_torch.cli.reenact.main``.
-10. one JSON line listing each kernel: launches, error against its twin,
-   its time, the twin's time and its bound on this card; the dense-chain
-   and quad rows also carry the time of the unfused chain (five
-   ``F.linear`` calls, for the quad rows after the bilinear gathers, and
-   autograd's backward).
+10. the field kernel (``csrc/mlp.cu``'s ``field_eval_*``: posenc in the
+   kernel, then the chain; float32 and bf16), which no serving or training
+   path runs (its launch count after phases 4 to 9 must be 0): against its
+   twin on seeded points (|p| up to 5) at N = 1,310,720 (the micro shape)
+   and 100,003; on the golden scene's trained field, on the exact float32
+   renderer's coarse-pass points (16384 rays x 64 samples), against
+   ``field.forward`` in float32 and its twin in bf16; then its micro entry
+   point ``havatar_tpu_torch.scripts.micro_field.main`` at N = 1,310,720.
+   Launch counts equal the calls made.
+11. one JSON line listing each kernel: launches, error against its twin,
+   its time, the twin's time and its bound on this card; the dense-chain,
+   quad and field rows also carry the time of the unfused chain (five
+   ``F.linear`` calls, for the quad rows after the bilinear gathers and
+   for the field rows after posenc, and autograd's backward).
 
 The last line is ``{"ok": true, "device": {...}}``. Comparisons run with
 TF32 off for matmuls and cuDNN, so the twins' float32 products are full
@@ -423,10 +432,12 @@ def phase_kernels(dev) -> None:
               + " ".join(f"{n}={v:.3g}" for n, v in e.items()), flush=True)
 
 
-def phase_golden(dev) -> None:
+def phase_golden(dev) -> tuple:
     """The golden scene through the renderer's three configurations. The
     two fused ones (bf16 kernels) are held to havatar_tpu's bf16 fused path
-    less 1 dB; the exact one (float32) to the JAX package's own bar."""
+    less 1 dB; the exact one (float32) to the JAX package's own bar.
+    Returns the exact renderer's field and its coarse pass's arguments
+    (canonical points [1, 16384 * 64, 3], planes) for phase 10."""
     from havatar_tpu_torch.checkpoints.convert import from_jax_params
     from havatar_tpu_torch.models.renderer import AvatarRenderer
     from havatar_tpu_torch.models.skinning import fix_canonical_volume
@@ -453,12 +464,16 @@ def phase_golden(dev) -> None:
                                       for k in missing),
                f"golden weights do not fit: {unexpected} {missing[:4]}")
         r = r.to(dev).eval()
+        calls = []    # the exact path's field calls: coarse pass first
+        hook = r.model_coarse.register_forward_pre_hook(
+            lambda m, args: calls.append(args))
         with torch.inference_mode():
             vol = fix_canonical_volume(r.skin_volume())
             out = r.render_rays(t("planes").to(r.compute_dtype), t("rays"),
                                 t("bg"), t("inv_head_T"),
                                 num_coarse=int(g["num_coarse"]),
                                 num_fine=int(g["num_fine"]), fixed_volume=vol)
+        hook.remove()
         got = out["rgb_fine"]
         torch.cuda.synchronize()
         _check(got.shape == want.shape and bool(torch.isfinite(got).all()),
@@ -475,6 +490,9 @@ def phase_golden(dev) -> None:
         if not fused:
             _check(torch.allclose(got, want, **GOLDEN_F32_TOL),
                    f"golden render ({what}) beyond {GOLDEN_F32_TOL}")
+            can, _, planes = calls[0]
+            coarse = (r.model_coarse, can, planes)
+    return coarse
 
 
 def _frame_inputs(base: dict, i: int) -> dict:
@@ -554,7 +572,7 @@ def phase_frames(dev):
     # a sample in near-empty space, and that sample's neighbour's delta
     # changes with it: at a few pixels (a) differs by more than the flips of
     # one kernel. So (a) is held by PSNR, and the 5e-3 bound holds (b),
-    # where the fine samples are the main path's; phase 10 holds the coarse
+    # where the fine samples are the main path's; phase 11 holds the coarse
     # kernel to its twin on this frame's own inputs.
     captured = {}
 
@@ -2023,7 +2041,7 @@ def quad_kernel_rows(captured, main_counts, bf16_counts) -> list:
         aux = torch.cat([call["pe"].float(), w8], -1)
         g = call["g"].contiguous()
         err_f, err_b = _check_quad(q, aux, g, call["params"],
-                                   f"phase 10, {dtype}, a G step's call")
+                                   f"phase 11, {dtype}, a G step's call")
         t = quad_timings(call, q, aux)
         common = {"route": "cuda",
                   "source": "havatar_tpu_torch/csrc/mlp.cu",
@@ -2060,7 +2078,7 @@ def mlp_kernel_rows(captured, main_counts, bf16_counts) -> list:
         name = "f32" if dtype == torch.float32 else "bf16"
         x = captured["x"].to(dtype).contiguous()
         g, params = captured["g"].contiguous(), captured["params"]
-        where = f"phase 10, {dtype}, a step's coarse call"
+        where = f"phase 11, {dtype}, a step's coarse call"
         with torch.no_grad():
             got = M.mlp_forward(x, *params)
             torch.cuda.synchronize()
@@ -2097,9 +2115,136 @@ def mlp_kernel_rows(captured, main_counts, bf16_counts) -> list:
         t = mlp_timings(captured["x"][:rows_n].contiguous(),
                         captured["g"][:rows_n].contiguous(),
                         captured["params"])
-        print(f"[10 kernels] float32, N = {rows_n} ({what}): "
+        print(f"[11 kernels] float32, N = {rows_n} ({what}): "
               + json.dumps({k: round(v, 4) if isinstance(v, float) else v
                             for k, v in t.items()}), flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the field kernel (csrc/mlp.cu's field_eval_*), which no serving or
+# training path runs
+# ---------------------------------------------------------------------------
+
+FIELD_NS = (1310720, 100003)   # the micro shape (16384 x (64 + 16)); ragged
+FIELD_PTS_SPAN = 5.0           # |p| up to 5: top-frequency angles up to 640
+FIELD_REPLACES = "havatar_tpu/ops/pallas_field.py:108"
+
+
+def field_bound(pts, feat, params):
+    """Bound of a field kernel from its call's arguments: the points, the
+    features, the parameters and the [N, 68] float32 output move once; the
+    chain's products run at the rate of the features' type (posenc's 48
+    sines a row are not counted)."""
+    n = pts.shape[0]
+    ops = 2.0 * n * _mlp_macs()[0]
+    bf16 = feat.dtype == torch.bfloat16
+    return _bound_ms(_nbytes(pts, feat, *params) + n * 68 * 4,
+                     ops if bf16 else 0.0, 0.0 if bf16 else ops)
+
+
+def phase_field(dev, golden) -> list:
+    """Kernel 9: the count phases 4 to 9 left (0: no serving or training
+    path runs it); the kernel against its twin on seeded inputs; on the
+    golden scene's trained field (``golden``: phase 3's exact renderer's
+    field and its coarse pass's points and planes) against the field's own
+    float32 forward and, in bf16, the twin; the micro entry point. The
+    golden and micro calls are the main path: their launches are counted.
+    Returns the two rows of the kernels line, timed on the seeded inputs of
+    the micro shape."""
+    from havatar_tpu_torch.ops import field as FE
+    from havatar_tpu_torch.scripts import micro_field
+    _check(FE.fused_field_eval.launches == 0,
+           f"phases 4 to 9 launched the field kernel "
+           f"{FE.fused_field_eval.launches} times")
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(9)
+    params = _mlp_params(torch.Generator().manual_seed(9), dev)
+    errs, timed = {f32: 0.0, bf16: 0.0}, {}
+    for n in FIELD_NS:
+        pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1
+               ) * FIELD_PTS_SPAN
+        feat32 = torch.randn(n, FE.FEAT_IN, generator=gen, device=dev)
+        line = []
+        for dtype in (f32, bf16):
+            feat = feat32.to(dtype)
+            with torch.inference_mode():
+                got = FE.fused_field_eval(pts, feat, *params)
+                torch.cuda.synchronize()
+                err = compare_mlp_forward(
+                    got, FE.fused_field_eval_plain(pts, feat, *params), dtype,
+                    f"phase 10, seeded, {dtype}, N = {n}")
+            errs[dtype] = max(errs[dtype], err)
+            line.append(f"{str(dtype).split('.')[-1]} {err:.3g}")
+            if n == FIELD_NS[0]:
+                timed[dtype] = (pts, feat)
+        print(f"[10 field] seeded, N = {n}, |p| <= {FIELD_PTS_SPAN}: kernel "
+              f"vs twin max abs err " + ", ".join(line), flush=True)
+
+    # the main path: the trained field, then the micro entry point
+    field, can, planes = golden
+    launches = {}
+    with torch.inference_mode():
+        pts = can[0].contiguous()
+        feat = field.sample_plane_features(can, planes)[0].contiguous()
+        want = field(can, None, planes)[0]
+        dense = field.dense_params()
+        FE.fused_field_eval.launches = 0
+        got = FE.fused_field_eval(pts, feat, *dense)
+        torch.cuda.synchronize()
+        launches[f32] = FE.fused_field_eval.launches
+        feat16 = feat.to(bf16)
+        FE.fused_field_eval.launches = 0
+        got16 = FE.fused_field_eval(pts, feat16, *dense)
+        torch.cuda.synchronize()
+        launches[bf16] = FE.fused_field_eval.launches
+        want16 = FE.fused_field_eval_plain(pts, feat16, *dense)
+    _check(launches == {f32: 1, bf16: 1}, f"golden field: launches {launches}")
+    err_g = compare_mlp_forward(got, want, f32,
+                                "phase 10, golden, float32 vs field.forward")
+    err_g16 = compare_mlp_forward(got16, want16, bf16,
+                                  "phase 10, golden, bf16 vs twin")
+    sigma = want[:, -1]
+    print(f"[10 field] golden scene's trained field, exact renderer's coarse "
+          f"pass ({pts.shape[0]} rows; sigma in [{float(sigma.min()):.3f}, "
+          f"{float(sigma.max()):.3f}]): float32 kernel vs "
+          f"field.forward max abs err {err_g:.3g}, bf16 kernel vs twin "
+          f"{err_g16:.3g}; launches {launches[f32]} + {launches[bf16]}",
+          flush=True)
+    del feat, feat16, want, want16, got, got16, sigma
+
+    FE.fused_field_eval.launches = 0
+    res = micro_field.main(["--n", str(FIELD_NS[0])])
+    _check(FE.fused_field_eval.launches == res["fused_calls"] > 0,
+           f"micro_field: {FE.fused_field_eval.launches} launches for "
+           f"{res['fused_calls']} calls")
+    launches[bf16] += FE.fused_field_eval.launches
+    print(f"[10 field] micro_field at N = {res['n']}: fused "
+          f"{res['fused_bf16_ms']:.4f} ms, unfused "
+          f"{res['unfused_bf16_ms']:.4f} ms (bf16), "
+          f"{FE.fused_field_eval.launches} launches", flush=True)
+
+    rows = []
+    for dtype, name, err_gold in ((f32, "f32", err_g),
+                                  (bf16, "bf16", err_g16)):
+        pts, feat = timed[dtype]
+        with torch.inference_mode():
+            ms = _time_ms(lambda: FE.fused_field_eval(pts, feat, *params))
+            plain_ms = _time_ms(
+                lambda: FE.fused_field_eval_plain(pts, feat, *params), 5, 1)
+            unfused_ms = _time_ms(lambda: micro_field.unfused_field_eval(
+                pts, feat, *params), 5, 1)
+        bound, by = field_bound(pts, feat, params)
+        rows.append({
+            "name": f"field_eval_{name}", "route": "cuda",
+            "source": "havatar_tpu_torch/csrc/mlp.cu",
+            "replaces": FIELD_REPLACES, "launches": launches[dtype],
+            "n_rows": pts.shape[0], "max_abs_err": errs[dtype],
+            "golden_max_abs_err": err_gold, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "unfused_ms": unfused_ms,
+            "library_ms": None})
+    del timed
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2126,7 +2271,7 @@ def phase_kernel_line(captured, launches, serve_launches) -> list:
         with torch.inference_mode():
             got = kernel(*a, **kw)
             torch.cuda.synchronize()
-            errs = compare(got, plain(*a, **kw), "phase 10")
+            errs = compare(got, plain(*a, **kw), "phase 11")
             ms = _time_ms(lambda: kernel(*a, **kw))
             plain_ms = _time_ms(lambda: plain(*a, **kw), iters=5)
         bound, by = bound_fn(a, got)
@@ -2159,7 +2304,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     phase_kernels(dev)
-    phase_golden(dev)
+    golden_coarse = phase_golden(dev)
+    from havatar_tpu_torch.ops.field import fused_field_eval
+    fused_field_eval.launches = 0     # phases 4 to 9 must leave it so
     fs, inputs, frames, launches, captured = phase_frames(dev)
     frame_ms = phase_timing(fs, inputs)
     phase_profile(fs, inputs, frame_ms)
@@ -2178,10 +2325,13 @@ def main() -> int:
         hd_counts, hd_bf16_counts, hd_captured = phase_hd(dev, root, data,
                                                           ckpt)
     torch.cuda.empty_cache()
+    field_rows = phase_field(dev, golden_coarse)
+    del golden_coarse
     rows = phase_kernel_line({**captured, **captured_x},
                              {**launches, **launches_x}, serve_launches)
     rows += mlp_kernel_rows(train_captured, train_counts, bf16_counts)
     rows += quad_kernel_rows(hd_captured, hd_counts, hd_bf16_counts)
+    rows += field_rows
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

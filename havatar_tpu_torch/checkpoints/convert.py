@@ -18,12 +18,14 @@ Covers the renderer (field MLP, the plane generators of all three
 ``StyleUNetSR``, ``WaveletDiscriminator`` (the inverse of
 ``convert_discriminator``), and the flat
 ``field.*`` / ``skin.*`` keys of ``tests/golden/render_production.npz``.
+``dense_params_from_jax`` carries a field's bare dense-layer dict into the
+fused field ops' parameter tuple.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -237,6 +239,22 @@ def _unflatten_golden(flat: Mapping) -> Dict[str, Any]:
         params["skinning"] = {"canonical_volume": vol_p}
     return {"params": params,
             "buffers": {"skinning": {"canonical_volume": vol_b}}}
+
+
+DENSE_LAYERS = ("layer0", "layer1", "fc_rgbFeat", "fc_alpha", "fc_rgb")
+
+
+def dense_params_from_jax(params: Mapping) -> Tuple[torch.Tensor, ...]:
+    """A JAX field's dense layers, ``{"layer0": {"kernel", "bias"}, ...}``
+    (``DoublePlaneNeRFField.mlp_params``, ``scripts/micro_pallas.py``'s
+    dict, or the ``params`` of a field), -> the ten tensors in the port's
+    ``DoublePlaneNeRFField.dense_params()`` order (w0, b0, w1, b1, w_feat,
+    b_feat, w_alpha, b_alpha, w_rgb, b_rgb), in Linear layout."""
+    out = []
+    for name in DENSE_LAYERS:
+        sd = _linear(params[name], name, weight="kernel")
+        out += [sd[f"{name}.weight"], sd[f"{name}.bias"]]
+    return tuple(out)
 
 
 def from_jax_params(variables: Mapping) -> StateDict:

@@ -15,6 +15,9 @@
 //   mlp_quad_backward (float32 or bf16 quads)
 //       -> havatar_tpu/ops/pallas_mlp_quad.py:field_radiance_quad, backward
 //          (Pallas kernel _bwd_kernel)
+//   field_eval_f32, field_eval_bf16
+//       -> havatar_tpu/ops/pallas_field.py:fused_field_eval (Pallas kernel
+//          _field_kernel; inference only, no backward)
 //
 // The quad entry points are the same chain with one more step at each end.
 // Their input is a point's raw bilinear corner rows, quads [N, 8C] (four
@@ -81,6 +84,20 @@
 //    then) and runs one warp a row again: it reads the quad rows a second
 //    time (from L2: a block's tile is 64 rows) for dw, with a warp
 //    reduction a corner, and writes dq with coalesced 8-byte stores.
+//  * field_eval entry points: the forward engines with a third input mode,
+//    PE. Their input is the points [N, 3] f32 and the plane features
+//    [N, 128] (f32 for the FFMA engine, bf16 for the tensor-core one); the
+//    loader stages a tile's points (one contiguous 12-byte-a-row block, read
+//    with coalesced 4-byte loads) in shared memory, copies the feature rows
+//    and writes the 48 posenc columns of the x tile itself, in the order
+//    [F, (sin, sin + pi/2), C], rounded to the chain's type. The angle is
+//    p * 2^f (exact), and the second column is sinf of the float32-rounded
+//    angle + pi/2, as the twin's sin(angles + pi/2) computes it, not the
+//    cosine: the two differ by an ulp of the angle, 6e-5 at |angle| ~ 600.
+//    sinf, not __sinf (no fast math). Layer0 takes x in the reference's
+//    order: no permutation. A row moves 12 + 512 (f32) or 256 (bf16) bytes
+//    in and 272 out against the same 47,424 multiply-adds: float32 stays
+//    bound by operations, bf16 by bytes.
 
 #include "field_mlp.cuh"
 
@@ -94,6 +111,12 @@ constexpr int LDX = FIN + 4, LDH = HID + 4, LDD = CF + 4;  // f32 row strides
 constexpr int LDW = 192;   // staged chunk row: up to three 64-column groups
 // the quad entry points: C plane channels, posenc, aux row
 constexpr int QC = 64, NPE = FIN - 2 * QC, NAUX = NPE + 8;
+// the field_eval entry points: plane features a row, posenc frequencies
+constexpr int FEAT = FIN - NPE, NFREQ = NPE / 6;
+
+// What a forward's input rows are: x [N][FIN]; quads [N][8 QC] with aux
+// [N][NAUX]; or plane features [N][FEAT] with the points [N][3] (PE).
+enum class In { X, QUAD, PE };
 
 // forward: x/h1 [TM][LDX] | h0/feat [TM][LDH] | weight stage [KC][LDW]
 constexpr int kFwdFloats = TM * LDX + TM * LDH + KC * LDW;
@@ -102,6 +125,11 @@ constexpr int kBiasFloats = HID + HID + LDD + 4;
 constexpr int kBwdFloats =
     TM * LDX + 2 * TM * LDH + 2 * TM * LDD + KC * LDW + kBiasFloats;
 constexpr int kQuadFloats = TM * 8;  // the quad entry points' corner weights
+constexpr int kPeFloats = TM * 3;    // the field_eval entry points' points
+
+constexpr int extra_floats(In in) {
+  return in == In::QUAD ? kQuadFloats : in == In::PE ? kPeFloats : 0;
+}
 
 struct Params {
   // [in][out] copies, k-major for the forward products
@@ -123,14 +151,16 @@ template <> __device__ __forceinline__ float rnd<bf16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// Rows of x (type T) into a float tile; rows at or past `valid` are zero.
+// Rows of x (type T, W wide) into the first W columns of a float tile; rows
+// at or past `valid` are zero.
+template <int W = FIN>
 __device__ __forceinline__ void load_rows(float* X, const float* __restrict__ x,
                                           int valid) {
-  for (int i = threadIdx.x; i < TM * (FIN / 4); i += NT) {
-    const int r = i / (FIN / 4), c = (i % (FIN / 4)) * 4;
+  for (int i = threadIdx.x; i < TM * (W / 4); i += NT) {
+    const int r = i / (W / 4), c = (i % (W / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < valid)
-      v = __ldg(reinterpret_cast<const float4*>(x + size_t(r) * FIN + c));
+      v = __ldg(reinterpret_cast<const float4*>(x + size_t(r) * W + c));
     *reinterpret_cast<float4*>(X + r * LDX + c) = v;
   }
 }
@@ -154,6 +184,62 @@ __device__ __forceinline__ void load_rows(float* X, const bf16* __restrict__ x,
     float* o = X + r * LDX + c;
     *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
     *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// Posenc column j (of NPE) of the point p[0..2]: frequency f = j / 6, sin or
+// sin(+ pi/2) by j / 3 % 2, coordinate j % 3. The product by 2^f is exact;
+// the sum with pi/2 rounds to float32 before the sine, as in the twin.
+__device__ __forceinline__ float posenc(const float* p, int j) {
+  const float ang = __fmul_rn(p[j % 3], float(1 << (j / 6)));
+  return sinf((j / 3) & 1 ? __fadd_rn(ang, 1.5707963267948966f) : ang);
+}
+
+// The PE loader of the float32 engine: the tile's points [rows][3] (one
+// contiguous block) into P [TM][3], its feature rows [rows][FEAT] into X's
+// first FEAT columns, then posenc into X's last NPE columns. Rows at or past
+// `valid` are zero. All threads call it: it has a barrier.
+__device__ __forceinline__ void load_pe_rows(float* X, float* P,
+                                             const float* __restrict__ pts,
+                                             const float* __restrict__ feat,
+                                             int valid) {
+  for (int i = threadIdx.x; i < TM * 3; i += NT)
+    P[i] = i < 3 * valid ? __ldg(pts + i) : 0.f;
+  load_rows<FEAT>(X, feat, valid);
+  __syncthreads();  // the points are staged
+  for (int i = threadIdx.x; i < TM * NPE; i += NT) {
+    const int r = i / NPE, j = i % NPE;
+    X[r * LDX + FEAT + j] = r < valid ? posenc(P + 3 * r, j) : 0.f;
+  }
+}
+
+// The PE loader of the tensor-core engine, for one warp's 16 rows of the
+// tile that starts at point pt0: points staged in P [16][3], feature rows
+// [FEAT] bf16 copied 16 bytes a lane, posenc written as bf16 after them.
+// Rows at or past `valid` are zero.
+__device__ void pe_inputs(unsigned char* smem, const Layout& L,
+                          const bf16* __restrict__ feat,
+                          const float* __restrict__ pts, long pt0, int valid,
+                          int warp, int lane) {
+  bf16* sX = reinterpret_cast<bf16*>(smem + L.x) + warp * 16 * L.ldx;
+  float* P = reinterpret_cast<float*>(smem + L.extra) + warp * 16 * 3;
+  const long p0 = pt0 + warp * 16;
+  const int rows = max(0, min(16, valid - warp * 16));
+  for (int i = lane; i < 16 * 3; i += 32)
+    P[i] = i < 3 * rows ? pts[p0 * 3 + i] : 0.f;
+  constexpr int nch = FEAT / 8;  // 16-byte chunks a row
+  for (int i = lane; i < 16 * nch; i += 32) {
+    const int row = i / nch, ch = i % nch;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < rows)
+      v = *reinterpret_cast<const uint4*>(feat + (p0 + row) * FEAT + ch * 8);
+    *reinterpret_cast<uint4*>(sX + row * L.ldx + ch * 8) = v;
+  }
+  __syncwarp();  // the points are staged
+  for (int i = lane; i < 16 * NPE; i += 32) {
+    const int row = i / NPE, j = i % NPE;
+    sX[row * L.ldx + FEAT + j] =
+        __float2bfloat16(row < rows ? posenc(P + 3 * row, j) : 0.f);
   }
 }
 
@@ -434,7 +520,8 @@ __device__ __forceinline__ void store4(bf16* p, float a, float b, float c,
 // ---------------------------------------------------------------------------
 
 // QUAD: x is quads [N][8 QC] with aux [N][NAUX] (see the top of the file).
-template <typename T, bool QUAD>
+// PE: x is the plane features [N][FEAT] and aux the points [N][3].
+template <typename T, In IN>
 __global__ void __launch_bounds__(NT, 2)
 mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ aux,
                Params p, float* __restrict__ out, long long N) {
@@ -442,15 +529,17 @@ mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ aux,
   float* X = sm;             // x, then h1
   float* H = X + TM * LDX;   // h0, then rnd(feat) with row stride LDD
   float* Ws = H + TM * LDH;
-  float* W8 = Ws + KC * LDW;  // QUAD: the tile's corner weights
+  float* Ex = Ws + KC * LDW;  // QUAD: the tile's corner weights; PE: points
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const long long ntiles = (N + TM - 1) / TM;
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long row0 = tile * TM;
     const int valid = int(N - row0 < TM ? N - row0 : TM);
-    __syncthreads();  // the tile before is done with X and H
-    if constexpr (QUAD)
-      load_quad_rows(X, W8, x + row0 * (8 * QC), aux + row0 * NAUX, valid);
+    __syncthreads();  // the tile before is done with X, H and Ex
+    if constexpr (IN == In::QUAD)
+      load_quad_rows(X, Ex, x + row0 * (8 * QC), aux + row0 * NAUX, valid);
+    else if constexpr (IN == In::PE)
+      load_pe_rows(X, Ex, aux + row0 * 3, x + row0 * FEAT, valid);
     else
       load_rows(X, x + row0 * FIN, valid);
     float acc[4][8];
@@ -660,8 +749,9 @@ mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ aux,
 // ---------------------------------------------------------------------------
 
 // QUAD: x is quads [N][8 QC] bf16 with aux [N][NAUX] f32, corner-reduced by
-// build_inputs as in the march kernels.
-template <int H, int CFT, bool QUAD>
+// build_inputs as in the march kernels. PE: x is the plane features
+// [N][FEAT] bf16 and aux the points [N][3] f32 (pe_inputs).
+template <int H, int CFT, In IN>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ aux,
                    Weights w, float* __restrict__ out, long long N, Layout L) {
@@ -677,8 +767,10 @@ mlp_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ aux,
     const long long pt0 = tile * kPoints;
     const int valid = int(N - pt0 < kPoints ? N - pt0 : kPoints);
     __syncthreads();  // weights staged
-    if constexpr (QUAD)
+    if constexpr (IN == In::QUAD)
       build_inputs(smem, L, x, aux, long(pt0), valid, QC, NPE, warp, lane);
+    else if constexpr (IN == In::PE)
+      pe_inputs(smem, L, x, aux, long(pt0), valid, warp, lane);
     else
       copy_inputs(smem, L, x, long(pt0), valid, warp, lane);
     __syncwarp();
@@ -700,11 +792,11 @@ bool widths_ok(int fin, int hid, int cf) {
   return fin == FIN && hid == HID && cf == CF;
 }
 
-template <bool QUAD>
+template <In IN>
 int launch_fwd_f32(const float* x, const float* aux, const Params& p,
                    float* out, long long N, void* stream) {
-  auto kern = mlp_fwd_kernel<float, QUAD>;
-  const size_t bytes = size_t(kFwdFloats + (QUAD ? kQuadFloats : 0)) * 4;
+  auto kern = mlp_fwd_kernel<float, IN>;
+  const size_t bytes = size_t(kFwdFloats + extra_floats(IN)) * 4;
   int grid = 0;
   cudaError_t e = launch_config(kern, NT, bytes, (N + TM - 1) / TM, &grid);
   if (e != cudaSuccess) return int(e);
@@ -712,10 +804,10 @@ int launch_fwd_f32(const float* x, const float* aux, const Params& p,
   return int(cudaGetLastError());
 }
 
-template <bool QUAD>
+template <In IN>
 int launch_fwd_mma(const bf16* x, const float* aux, const Weights& w,
                    float* out, long long N, const Layout& L, void* stream) {
-  auto kern = mlp_fwd_mma_kernel<HID, CF, QUAD>;
+  auto kern = mlp_fwd_mma_kernel<HID, CF, IN>;
   int grid = 0;
   cudaError_t e = launch_config(kern, kThreads, L.total,
                                 (N + kPoints - 1) / kPoints, &grid);
@@ -760,7 +852,7 @@ int mlp_forward_f32(const void* x, const void* w0_kn, const void* w1_kn,
   p.wf_kn = (const float*)wf_kn; p.wa = (const float*)wa;
   p.wr = (const float*)wr; p.b0 = (const float*)b0; p.b1 = (const float*)b1;
   p.bf = (const float*)bf; p.ba = (const float*)ba; p.br = (const float*)br;
-  return launch_fwd_f32<false>((const float*)x, nullptr, p, (float*)out, N,
+  return launch_fwd_f32<In::X>((const float*)x, nullptr, p, (float*)out, N,
                                stream);
 }
 
@@ -777,7 +869,7 @@ int mlp_forward_bf16(const void* x, const void* w0, const void* b0,
   const Weights w{(const bf16*)w0, (const bf16*)w1, (const bf16*)wh,
                   (const bf16*)wr, (const float*)b0, (const float*)b1,
                   (const float*)bh, (const float*)br};
-  return launch_fwd_mma<false>((const bf16*)x, nullptr, w, (float*)out, N, L,
+  return launch_fwd_mma<In::X>((const bf16*)x, nullptr, w, (float*)out, N, L,
                                stream);
 }
 
@@ -827,8 +919,8 @@ int mlp_quad_forward_f32(const void* quads, const void* aux,
   p.wf_kn = (const float*)wf_kn; p.wa = (const float*)wa;
   p.wr = (const float*)wr; p.b0 = (const float*)b0; p.b1 = (const float*)b1;
   p.bf = (const float*)bf; p.ba = (const float*)ba; p.br = (const float*)br;
-  return launch_fwd_f32<true>((const float*)quads, (const float*)aux, p,
-                              (float*)out, N, stream);
+  return launch_fwd_f32<In::QUAD>((const float*)quads, (const float*)aux, p,
+                                  (float*)out, N, stream);
 }
 
 // quads [N][512] bf16 and aux [N][56] f32 -> out [N][68] f32. Weights as for
@@ -845,8 +937,51 @@ int mlp_quad_forward_bf16(const void* quads, const void* aux, const void* w0,
   const Weights w{(const bf16*)w0, (const bf16*)w1, (const bf16*)wh,
                   (const bf16*)wr, (const float*)b0, (const float*)b1,
                   (const float*)bh, (const float*)br};
-  return launch_fwd_mma<true>((const bf16*)quads, (const float*)aux, w,
-                              (float*)out, N, L, stream);
+  return launch_fwd_mma<In::QUAD>((const bf16*)quads, (const float*)aux, w,
+                                  (float*)out, N, L, stream);
+}
+
+// pts [N][3] f32 and plane features [N][128] f32 -> out [N][68] f32: posenc
+// of the points (num_freqs 8) in the kernel, then the chain on [feat |
+// posenc]. Weights as for mlp_forward_f32, w0_kn's 176 input rows in the
+// reference's order.
+int field_eval_f32(const void* pts, const void* feat, const void* w0_kn,
+                   const void* w1_kn, const void* wf_kn, const void* wa,
+                   const void* wr, const void* b0, const void* b1,
+                   const void* bf, const void* ba, const void* br, void* out,
+                   long long N, int feat_in, int num_freqs, int hid, int cf,
+                   void* stream) {
+  if (!widths_ok(feat_in + 6 * num_freqs, hid, cf) || feat_in != FEAT ||
+      num_freqs != NFREQ || N < 0)
+    return int(cudaErrorInvalidValue);
+  if (N == 0) return int(cudaSuccess);
+  Params p{};
+  p.w0_kn = (const float*)w0_kn; p.w1_kn = (const float*)w1_kn;
+  p.wf_kn = (const float*)wf_kn; p.wa = (const float*)wa;
+  p.wr = (const float*)wr; p.b0 = (const float*)b0; p.b1 = (const float*)b1;
+  p.bf = (const float*)bf; p.ba = (const float*)ba; p.br = (const float*)br;
+  return launch_fwd_f32<In::PE>((const float*)feat, (const float*)pts, p,
+                                (float*)out, N, stream);
+}
+
+// pts [N][3] f32 and plane features [N][128] bf16 -> out [N][68] f32.
+// Weights as for mlp_forward_bf16, w0's 176 input columns in the
+// reference's order.
+int field_eval_bf16(const void* pts, const void* feat, const void* w0,
+                    const void* b0, const void* w1, const void* b1,
+                    const void* wh, const void* bh, const void* wr,
+                    const void* br, void* out, long long N, int feat_in,
+                    int num_freqs, int hid, int cf, void* stream) {
+  if (!widths_ok(feat_in + 6 * num_freqs, hid, cf) || feat_in != FEAT ||
+      num_freqs != NFREQ || N < 0)
+    return int(cudaErrorInvalidValue);
+  if (N == 0) return int(cudaSuccess);
+  const Layout L = make_layout<HID, CF>(FIN, size_t(kPoints) * 3 * 4);
+  const Weights w{(const bf16*)w0, (const bf16*)w1, (const bf16*)wh,
+                  (const bf16*)wr, (const float*)b0, (const float*)b1,
+                  (const float*)bh, (const float*)br};
+  return launch_fwd_mma<In::PE>((const bf16*)feat, (const float*)pts, w,
+                                (float*)out, N, L, stream);
 }
 
 // quads [N][512] (f32, or bf16 when quads_are_bf16), aux [N][56] f32, g

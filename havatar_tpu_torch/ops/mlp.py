@@ -190,6 +190,27 @@ def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
 
 
+def _fwd_args_f32(params: Sequence[torch.Tensor]) -> Params:
+    """The float32 forward engine's weights: w0, w1, w_feat as [in, out]
+    copies, then w_alpha, w_rgb and the five biases."""
+    w0, b0, w1, b1, wf, bf, wa, ba, wr, br = params
+    return (_kn(w0), _kn(w1), _kn(wf), _f32(wa), _f32(wr), _f32(b0),
+            _f32(b1), _f32(bf), _f32(ba), _f32(br))
+
+
+def _fwd_args_bf16(params: Sequence[torch.Tensor]) -> Params:
+    """The tensor-core forward's weights: bf16 as [out, in] (fc_rgbFeat's
+    rows stacked over fc_alpha's), float32 biases."""
+    w0, b0, w1, b1, wf, bf, wa, ba, wr, br = params
+
+    def bf16(t):
+        return t.detach().to(torch.bfloat16).contiguous()
+
+    return (bf16(w0), _f32(b0), bf16(w1), _f32(b1),
+            bf16(torch.cat([wf, wa], 0)), _f32(torch.cat([bf, ba], 0)),
+            bf16(wr), _f32(br))
+
+
 def mlp_forward(x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
     """The chain's forward, [N, Fin] -> [N, 3 + cf + 1] f32, with no graph:
     the forward kernel for a CUDA x, its plain twin for a CPU x."""
@@ -198,24 +219,17 @@ def mlp_forward(x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
             return fused_mlp_chain_plain(x, *params)
     _check_shapes(x, params)
     _check_cuda_widths(x, params)
-    w0, b0, w1, b1, wf, bf, wa, ba, wr, br = params
     N = x.shape[0]
     out = torch.empty(N, 3 + CF + 1, dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if x.dtype == torch.float32:
-            args = (_kn(w0), _kn(w1), _kn(wf), _f32(wa), _f32(wr), _f32(b0),
-                    _f32(b1), _f32(bf), _f32(ba), _f32(br))
+            args = _fwd_args_f32(params)
             err = lib.mlp_forward_f32(*_ptrs(x.detach(), *args, out), N, FIN,
                                       HID, CF, stream)
         else:
-            def bf16(t):
-                return t.detach().to(torch.bfloat16).contiguous()
-
-            args = (bf16(w0), _f32(b0), bf16(w1), _f32(b1),
-                    bf16(torch.cat([wf, wa], 0)),
-                    _f32(torch.cat([bf, ba], 0)), bf16(wr), _f32(br))
+            args = _fwd_args_bf16(params)
             err = lib.mlp_forward_bf16(*_ptrs(x.detach(), *args, out), N,
                                        FIN, HID, CF, stream)
     _raise_on(lib, err, "mlp_forward")

@@ -184,8 +184,7 @@ def quad_forward(quads: torch.Tensor, aux: torch.Tensor,
         with torch.no_grad():
             return field_radiance_quad_plain(quads, aux, *params)
     _check_cuda(quads, aux, params)
-    w0, b0, w1, b1, wf, bf, wa, ba, wr, br = _block_order(params, C_PLANE,
-                                                          N_PE)
+    block = _block_order(params, C_PLANE, N_PE)
     N = quads.shape[0]
     out = torch.empty(N, 3 + M.CF + 1, dtype=torch.float32,
                       device=quads.device)
@@ -193,19 +192,12 @@ def quad_forward(quads: torch.Tensor, aux: torch.Tensor,
     with torch.cuda.device(quads.device):
         stream = torch.cuda.current_stream(quads.device).cuda_stream
         if quads.dtype == torch.float32:
-            args = (M._kn(w0), M._kn(w1), M._kn(wf), M._f32(wa), M._f32(wr),
-                    M._f32(b0), M._f32(b1), M._f32(bf), M._f32(ba),
-                    M._f32(br))
+            args = M._fwd_args_f32(block)
             err = lib.mlp_quad_forward_f32(
                 *M._ptrs(quads, aux, *args, out), N, C_PLANE, N_PE, M.HID,
                 M.CF, stream)
         else:
-            def bf16(t):
-                return t.detach().to(torch.bfloat16).contiguous()
-
-            args = (bf16(w0), M._f32(b0), bf16(w1), M._f32(b1),
-                    bf16(torch.cat([wf, wa], 0)),
-                    M._f32(torch.cat([bf, ba], 0)), bf16(wr), M._f32(br))
+            args = M._fwd_args_bf16(block)
             err = lib.mlp_quad_forward_bf16(
                 *M._ptrs(quads, aux, *args, out), N, C_PLANE, N_PE, M.HID,
                 M.CF, stream)
