@@ -55,9 +55,11 @@ with a non-zero exit at the first failure:
    steps in bf16 and a few without the fused chain follow for the record;
    then the step's time with and without the fused chain in turns, its
    split by CUDA events and a torch.profiler trace of 5 steps.
-9. stage 2: the quad field kernels (``csrc/mlp.cu``'s ``mlp_quad_*``,
-   forward and backward, float32 and bf16) against their twins on seeded
-   inputs at N = 262,144 and 100,003; then training through
+9. stage 2: the quad field kernels (``csrc/quad.cu``: forward and
+   backward, float32 and bf16; they gather the corner texels from the
+   planes and splat the plane gradients themselves) against their twins on
+   seeded inputs at N = 262,144 and 100,003, plane gradients included, and
+   two backward launches bit for bit; then training through
    ``havatar_tpu_torch.cli.train_avatarHD.main`` at the full width of the
    built-in ``singleview_512_HD_base.yml`` with
    ``models.use_pallas_mlp_quad: true`` and only the cadences shortened
@@ -85,7 +87,12 @@ with a non-zero exit at the first failure:
    its time, the twin's time and its bound on this card; the dense-chain,
    quad and field rows also carry the time of the unfused chain (five
    ``F.linear`` calls, for the quad rows after the bilinear gathers and
-   for the field rows after posenc, and autograd's backward).
+   for the field rows after posenc, and autograd's backward); the quad rows
+   also the whole op's time (``op_ms``: the differentiable op's forward,
+   or its backward, the corner weights' autograd included) and the PyTorch
+   pieces of the composition the kernels replace (``gather_ms``: the corner
+   rows' gather; ``regather_splat_ms``: the gather again and the splat of
+   an [N, 8C] gradient with ``index_add_``).
 
 The last line is ``{"ok": true, "device": {...}}``. Comparisons run with
 TF32 off for matmuls and cuDNN, so the twins' float32 products are full
@@ -120,6 +127,10 @@ JAX_GOLDEN_BF16_PSNR_DB = 57.09588474752982
 HBM_BYTES_S = 3.35e12
 BF16_TC_OPS_S = 989e12
 F32_OPS_S = 67e12
+# float32 products as split TF32 on the tensor cores (three TF32 products,
+# 495 TFLOP/s dense, for one): what the quad kernels' float32 products would
+# be bound by on that route, printed beside the FFMA bound they run at
+TF32_SPLIT_OPS_S = 495e12 / 3
 
 R_FRAME, S_COARSE, S_FINE, C, N_PE = 16384, 16, 16, 64, 48
 SR_OUT = 512
@@ -322,10 +333,10 @@ def phase_device() -> None:
     print(f"[1 device] image codec {image_io.CODEC} {cv2.__version__}, "
           f"yaml {yaml.__version__}", flush=True)
     t0 = time.perf_counter()
-    cuda_build.build(["march", "mlp"])      # one nvcc each, side by side
-    print(f"[1 device] built csrc/march.cu and csrc/mlp.cu in "
+    cuda_build.build(["march", "mlp", "quad"])  # one nvcc each, side by side
+    print(f"[1 device] built csrc/march.cu, csrc/mlp.cu and csrc/quad.cu in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name in ("march", "mlp"):
+    for name in ("march", "mlp", "quad"):
         for line in cuda_build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas ({name}):", line.strip())
@@ -1079,14 +1090,17 @@ def compare_mlp_forward(got, want, dtype, where: str) -> float:
 
 
 def compare_backward(got, want, names, dtype, where: str,
-                     per_row=()) -> dict:
+                     per_row=None) -> dict:
     """A backward kernel's outputs against the twin's, tensor by tensor: the
     largest absolute error and the largest relative L2 error. bf16 by the
     relative L2; float32 atol 1e-4 * max(1, |want|max), rtol 1e-4, except
-    that in the ``per_row`` tensors (one row a point) one row in 10,000 may
-    have a hidden unit on the other side of the ReLU's kink
-    (tests/test_torch_quad_cuda.py); their count of such rows is
+    that ``per_row`` (name -> rows allowed) lets a tensor of rows (a row a
+    point, or a plane gradient's texels) have that many rows off: one point
+    in 10,000 may have a hidden unit on the other side of the ReLU's kink,
+    and such a point moves up to 4 texels of each plane
+    (tests/test_torch_quad_cuda.py); the largest count of such rows is
     ``kink_rows``."""
+    per_row = per_row or {}
     worst = {"max_abs_err": 0.0, "max_rel_l2": 0.0}
     if per_row:
         worst["kink_rows"] = 0
@@ -1102,9 +1116,10 @@ def compare_backward(got, want, names, dtype, where: str,
             tol = dict(atol=MLP_F32_GRAD_ATOL * max(1.0, float(b.abs().max())),
                        rtol=MLP_F32_GRAD_RTOL)
             if name in per_row:
-                bad = int((~torch.isclose(a, b, **tol)).any(1).sum())
+                bad = int((~torch.isclose(a, b, **tol)).reshape(
+                    -1, a.shape[-1]).any(1).sum())
                 worst["kink_rows"] = max(worst["kink_rows"], bad)
-                ok = bad <= max(1, a.shape[0] // 10000)
+                ok = bad <= per_row[name]
             else:
                 ok = torch.allclose(a, b, **tol)
         _check(ok, f"{where}: {name} max abs err {err}, relative L2 {rel}")
@@ -1568,7 +1583,7 @@ def phase_train(dev, root: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# the quad field op (csrc/mlp.cu, mlp_quad_*) and stage-2 training
+# the quad field op (csrc/quad.cu) and stage-2 training
 # ---------------------------------------------------------------------------
 
 HD_CONFIG = "singleview_512_HD_base.yml"      # built into the port
@@ -1578,57 +1593,80 @@ HD_ITERS, HD_EVERY, HD_RECORD_ITERS = 10, 5, 3
 # iterations by about as much)
 HD_PSNR_DROP_DB = 0.5
 QUAD_NS = (262144, 100003)                    # seeded; plus a G step's call
-QUAD_GRAD_NAMES = ("dq", "daux") + MLP_GRAD_NAMES[1:]
+QUAD_PLANE = 128                              # the production planes' side
+QUAD_GRAD_NAMES = ("dplane_xy", "dplane_zy", "daux") + MLP_GRAD_NAMES[1:]
 
 
-def quad_bound(quads, aux, params, backward: bool):
-    """Bound of a quad kernel from its call's arguments: quads, aux, the
-    parameters and the [N, 68] output move once (the backward reads as much
-    cotangent and writes dq, daux and the parameter gradients); the chain's
-    products run at the rate of the quads' type, the corner work (reduce;
-    in the backward also its recompute, dq and dw) in float32."""
-    n = quads.shape[0]
+def quad_bound(planes, rows, aux, params, backward: bool,
+               f32_ops_s: float = F32_OPS_S):
+    """Bound of a quad kernel from its call's arguments: the two planes,
+    rows, aux, the parameters and the [N, 68] output move once (the
+    backward reads as much cotangent and writes daux, the two float32
+    plane gradients and the parameter gradients); the chain's products run
+    at the rate of the planes' type (float32 at ``f32_ops_s``: FFMA, the
+    route the kernels take, or split TF32), the corner work (reduce; in the
+    backward also its recompute, the splat and dw) in float32."""
+    n = rows.shape[0]
     fwd, bwd = _mlp_macs()
-    nbytes = _nbytes(quads, aux, *params) + n * 68 * 4
+    nbytes = _nbytes(*planes, rows, aux, *params) + n * 68 * 4
     if backward:
-        nbytes += n * (8 * C + N_PE + 8) * 4 + _nbytes(*params)
+        nbytes += (n * 68 * 4 + _nbytes(aux) + 2 * planes[0].numel() * 4
+                   + 4 * sum(p.numel() for p in params))
     chain = 2.0 * n * (bwd if backward else fwd)
     corner = 2.0 * n * 8 * C * (3 if backward else 1)
-    bf16 = quads.dtype == torch.bfloat16
-    return _bound_ms(nbytes, chain if bf16 else 0.0,
-                     corner + (0.0 if bf16 else chain))
+    if planes[0].dtype == torch.bfloat16:
+        return _bound_ms(nbytes, chain, corner)
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = chain / f32_ops_s + corner / F32_OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def compare_quad_backward(got, want, dtype, where: str) -> dict:
-    """(dq, daux, grads) of the quad backward kernel against the twin's."""
-    return compare_backward((got[0], got[1], *got[2]),
-                            (want[0], want[1], *want[2]), QUAD_GRAD_NAMES,
-                            dtype, where, per_row=("dq", "daux"))
+    """(dplane_xy, dplane_zy, daux, grads) of the quad backward kernel
+    against the twin's; one point in 10,000 may cross a kink (4 texels of
+    each plane)."""
+    k = max(1, got[2].shape[0] // 10000)
+    return compare_backward(
+        (*got[:3], *got[3]), (*want[:3], *want[3]), QUAD_GRAD_NAMES, dtype,
+        where, per_row={"dplane_xy": 4 * k, "dplane_zy": 4 * k, "daux": k})
 
 
 def _quad_inputs_seeded(gen, dev, n, dtype):
-    q = torch.randn(n, 8 * C, generator=gen).to(dev).to(dtype)
-    w = torch.rand(n, 2, 4, generator=gen)
-    w = (w / w.sum(-1, keepdim=True)).reshape(n, 8)
-    aux = torch.cat([torch.rand(n, N_PE, generator=gen) * 2 - 1, w],
-                    1).to(dev)
-    g = torch.randn(n, 68, generator=gen).to(dev)
-    return q, aux, g
-
-
-def _check_quad(q, aux, g, params, where: str) -> tuple:
-    """Both quad kernels against their twins on one call's arguments."""
+    """Two production-size planes, points over the box and a little past it
+    (the zero padding's work), their cells and aux = posenc ++ corner
+    weights, and a cotangent."""
     from havatar_tpu_torch.ops import mlp_quad as Q
+    planes = [torch.randn(QUAD_PLANE, QUAD_PLANE, C, generator=gen).to(dev)
+              .to(dtype) for _ in range(2)]
+    warped = (torch.rand(n, 3, generator=gen) * 2.1 - 1.05).to(dev)
+    rows, w8 = Q.quad_rows(warped, QUAD_PLANE, QUAD_PLANE)
+    aux = torch.cat([(torch.rand(n, N_PE, generator=gen) * 2 - 1).to(dev),
+                     w8], 1)
+    g = torch.randn(n, 68, generator=gen).to(dev)
+    return planes, rows, aux, g
+
+
+def _check_quad(planes, rows, aux, g, params, where: str) -> tuple:
+    """Both quad kernels against their twins on one call's arguments, and
+    two backward launches' weight and bias gradients bit for bit."""
+    from havatar_tpu_torch.ops import mlp_quad as Q
+    dtype = planes[0].dtype
     with torch.no_grad():
-        got = Q.quad_forward(q, aux, *params)
+        got = Q.quad_forward(*planes, rows, aux, *params)
         torch.cuda.synchronize()
         err_f = compare_mlp_forward(
-            got, Q.field_radiance_quad_plain(q, aux, *params), q.dtype, where)
-        got_b = Q.quad_backward(q, aux, g, *params)
+            got, Q.field_radiance_quad_plain(*planes, rows, aux, *params),
+            dtype, where)
+        got_b = Q.quad_backward(*planes, rows, aux, g, *params)
         torch.cuda.synchronize()
         err_b = compare_quad_backward(
-            got_b, Q.field_radiance_quad_bwd_plain(q, aux, g, *params),
-            q.dtype, where)
+            got_b, Q.field_radiance_quad_bwd_plain(*planes, rows, aux, g,
+                                                   *params), dtype, where)
+        again = Q.quad_backward(*planes, rows, aux, g, *params)[3]
+        _check(all(torch.equal(a, b) for a, b in zip(got_b[3], again)),
+               f"{where}: two backward launches differ in a weight or bias "
+               f"gradient")
     return err_f, err_b
 
 
@@ -1652,25 +1690,51 @@ def _unfused_field(call, g=None):
     return out
 
 
-def quad_timings(call, q, aux) -> dict:
-    """CUDA-event times at one call's arguments: the two kernels, their
-    twins, the unfused field (forward, and forward with backward), and the
-    two bounds."""
+def _quad_op(call, g=None):
+    """The differentiable quad op on a call's arguments; with ``g`` also its
+    backward to the planes, points, posenc and parameters."""
     from havatar_tpu_torch.ops import mlp_quad as Q
+    leaves = (call["plane_xy"], call["plane_zy"], call["warped"], call["pe"],
+              *call["params"])
+    if g is not None:
+        leaves = [t.detach().requires_grad_() for t in leaves]
+    out = Q.field_radiance_quad(*leaves)
+    if g is not None:
+        return torch.autograd.grad(out, leaves, g)
+    return out
+
+
+def quad_timings(call, planes, rows, aux) -> dict:
+    """CUDA-event times at one call's arguments: the two kernels and the old
+    composition's gather and its regather with the splat of an [N, 8C]
+    gradient (``scripts/micro_quad.py``'s timings), the twins, the unfused
+    field and the whole op (forward, and forward with backward), and the
+    bounds."""
+    from havatar_tpu_torch.ops import mlp_quad as Q
+    from havatar_tpu_torch.scripts import micro_quad
     g, params = call["g"], call["params"]
     with torch.no_grad():
-        t = {"fwd_ms": _time_ms(lambda: Q.quad_forward(q, aux, *params), 5),
-             "bwd_ms": _time_ms(lambda: Q.quad_backward(q, aux, g, *params),
-                                5),
-             "fwd_plain_ms": _time_ms(
-                 lambda: Q.field_radiance_quad_plain(q, aux, *params), 2, 1),
-             "bwd_plain_ms": _time_ms(
-                 lambda: Q.field_radiance_quad_bwd_plain(q, aux, g, *params),
-                 2, 1),
-             "unfused_fwd_ms": _time_ms(lambda: _unfused_field(call), 2, 1)}
+        t = micro_quad.timings(planes, rows, aux, g, params, g.device)
+        t.update({
+            "fwd_plain_ms": _time_ms(
+                lambda: Q.field_radiance_quad_plain(*planes, rows, aux,
+                                                    *params), 2, 1),
+            "bwd_plain_ms": _time_ms(
+                lambda: Q.field_radiance_quad_bwd_plain(*planes, rows, aux,
+                                                        g, *params), 2, 1),
+            "unfused_fwd_ms": _time_ms(lambda: _unfused_field(call), 2, 1),
+            "op_fwd_ms": _time_ms(lambda: _quad_op(call), 5)})
     t["unfused_fwd_bwd_ms"] = _time_ms(lambda: _unfused_field(call, g), 2, 1)
-    (t["fwd_bound_ms"], t["fwd_bound_by"]) = quad_bound(q, aux, params, False)
-    (t["bwd_bound_ms"], t["bwd_bound_by"]) = quad_bound(q, aux, params, True)
+    t["op_fwd_bwd_ms"] = _time_ms(lambda: _quad_op(call, g), 5)
+    (t["fwd_bound_ms"], t["fwd_bound_by"]) = quad_bound(planes, rows, aux,
+                                                        params, False)
+    (t["bwd_bound_ms"], t["bwd_bound_by"]) = quad_bound(planes, rows, aux,
+                                                        params, True)
+    if planes[0].dtype == torch.float32:
+        t["fwd_bound_split_tf32_ms"] = quad_bound(
+            planes, rows, aux, params, False, TF32_SPLIT_OPS_S)[0]
+        t["bwd_bound_split_tf32_ms"] = quad_bound(
+            planes, rows, aux, params, True, TF32_SPLIT_OPS_S)[0]
     return t
 
 
@@ -1752,9 +1816,17 @@ def _hd_step_kernels_vs_twins(dev, cfg, data: str, ckpt: str) -> dict:
     calls, samples = [], []
     real_op, real_pdf = nerf_field.field_radiance_quad, R.sample_pdf
     real_fwd, real_bwd = Q.quad_forward, Q.quad_backward
+    # each run's gradient of its first op call's two planes: what that
+    # call's backward (kernel or twin) splatted
+    dplanes, run = {}, ["kernels"]
 
     def recording_op(pxy, pzy, warped, pe, *ps, **kw):
         out = real_op(pxy, pzy, warped, pe, *ps, **kw)
+        if run[0] not in dplanes:
+            got = dplanes[run[0]] = [None, None]
+            for i, t in enumerate((pxy, pzy)):
+                t.register_hook(
+                    lambda g, i=i: got.__setitem__(i, g.detach().clone()))
         if not calls:
             call = {"plane_xy": pxy.detach(), "plane_zy": pzy.detach(),
                     "warped": warped.detach(), "pe": pe.detach(),
@@ -1767,9 +1839,9 @@ def _hd_step_kernels_vs_twins(dev, cfg, data: str, ckpt: str) -> dict:
         samples.append(real_pdf(*a, **kw))
         return samples[-1]
 
-    def twin_fwd(q, aux, *ps):
+    def twin_fwd(pxy, pzy, rows, aux, *ps):
         with torch.no_grad():
-            return Q.field_radiance_quad_plain(q, aux, *ps)
+            return Q.field_radiance_quad_plain(pxy, pzy, rows, aux, *ps)
 
     n0 = Q.quad_forward.launches, Q.quad_backward.launches
     nerf_field.field_radiance_quad = recording_op
@@ -1779,6 +1851,7 @@ def _hd_step_kernels_vs_twins(dev, cfg, data: str, ckpt: str) -> dict:
         n1 = Q.quad_forward.launches, Q.quad_backward.launches
         Q.quad_forward, Q.quad_backward = (twin_fwd,
                                            Q.field_radiance_quad_bwd_plain)
+        run[0] = "twins"
         replay = iter(samples)
         with patched(sample_pdf=lambda *a, **kw: next(replay)):
             m_t, grads_t = step()
@@ -1799,6 +1872,11 @@ def _hd_step_kernels_vs_twins(dev, cfg, data: str, ckpt: str) -> dict:
         [n for n, _ in params], grads_k, grads_t,
         "one G step, kernels vs twins",
         lambda n: g_max if n.startswith("generator.") else None)
+    i_worst = [n for n, _ in params].index(worst_name)
+    worst_abs = _max_err(grads_k[i_worst], grads_t[i_worst])
+    worst_ref = float(grads_t[i_worst].abs().max())
+    dp = [(_max_err(a, b), float(b.abs().max()))
+          for a, b in zip(dplanes["kernels"], dplanes["twins"])]
     loss_k = float(m_k["nerf_loss"] + m_k["hr_l1"])
     loss_t = float(m_t["nerf_loss"] + m_t["hr_l1"])
     _check(abs(loss_k - loss_t) <= 1e-5 * abs(loss_t),
@@ -1810,7 +1888,10 @@ def _hd_step_kernels_vs_twins(dev, cfg, data: str, ckpt: str) -> dict:
           f"{sum(g is not None for g in grads_k)} gradients, the worst "
           f"({worst_name}) off by {worst:.3g} of its largest entry (bound "
           f"{TRAIN_GRAD_REL}; the generator's of its largest entry of "
-          f"{g_max:.4g})", flush=True)
+          f"{g_max:.4g}): {worst_abs:.4g} beside {worst_ref:.4g}; the first "
+          f"op call's plane gradients (xy, zy) off by "
+          f"{dp[0][0]:.4g} of {dp[0][1]:.4g} and {dp[1][0]:.4g} of "
+          f"{dp[1][1]:.4g}", flush=True)
     return calls[0]
 
 
@@ -1911,13 +1992,15 @@ def phase_hd(dev, root: str, data: str, stage1_ckpt: str) -> tuple:
     for dtype in (torch.float32, torch.bfloat16):
         for n in QUAD_NS:
             where = f"phase 9, {dtype}, N = {n}"
-            q, aux, g = _quad_inputs_seeded(gen, dev, n, dtype)
-            err_f, err_b = _check_quad(q, aux, g, params, where)
+            planes, rows, aux, g = _quad_inputs_seeded(gen, dev, n, dtype)
+            err_f, err_b = _check_quad(planes, rows, aux, g, params, where)
             print(f"[9 hd] quad kernels, {str(dtype).split('.')[-1]} N = {n}:"
                   f" forward max abs err {err_f:.3g}; backward "
                   + json.dumps({k: float(f"{v:.3g}")
-                                for k, v in err_b.items()}), flush=True)
-    del q, aux, g
+                                for k, v in err_b.items()})
+                  + "; weight gradients of two launches bit for bit",
+                  flush=True)
+    del planes, rows, aux, g
     torch.cuda.empty_cache()
 
     def counts():
@@ -2025,44 +2108,53 @@ def phase_hd(dev, root: str, data: str, stage1_ckpt: str) -> tuple:
 def quad_kernel_rows(captured, main_counts, bf16_counts) -> list:
     """The four quad rows of the kernels line, on what a G step's first op
     call gave the op (item 0's coarse pass, 128^2 rays x 64 samples =
-    1,048,576 rows; for the bf16 pair the same tensors in bf16). The
-    ``launches`` of the float32 pair are the main stage-2 run's, of the
-    bf16 pair the --turbo run's."""
+    1,048,576 rows; for the bf16 pair the same tensors with the planes in
+    bf16). The ``launches`` of the float32 pair are the main stage-2 run's,
+    of the bf16 pair the --turbo run's."""
     from havatar_tpu_torch.ops import mlp_quad as Q
-    rows = []
+    rows_out = []
     for dtype, launches in ((torch.float32, main_counts),
                             (torch.bfloat16, bf16_counts)):
         name = "f32" if dtype == torch.float32 else "bf16"
         call = dict(captured)
-        call["plane_xy"] = captured["plane_xy"].to(dtype)
-        call["plane_zy"] = captured["plane_zy"].to(dtype)
-        q, _, w8 = Q.gather_quads(call["plane_xy"], call["plane_zy"],
-                                  call["warped"])
+        call["plane_xy"] = captured["plane_xy"].to(dtype).contiguous()
+        call["plane_zy"] = captured["plane_zy"].to(dtype).contiguous()
+        planes = (call["plane_xy"], call["plane_zy"])
+        H, W, _ = planes[0].shape
+        rows, w8 = Q.quad_rows(call["warped"], H, W)
         aux = torch.cat([call["pe"].float(), w8], -1)
         g = call["g"].contiguous()
-        err_f, err_b = _check_quad(q, aux, g, call["params"],
+        err_f, err_b = _check_quad(planes, rows, aux, g, call["params"],
                                    f"phase 11, {dtype}, a G step's call")
-        t = quad_timings(call, q, aux)
+        t = quad_timings(call, planes, rows, aux)
         common = {"route": "cuda",
-                  "source": "havatar_tpu_torch/csrc/mlp.cu",
-                  "n_rows": q.shape[0], "library_ms": None}
-        rows.append({
+                  "source": "havatar_tpu_torch/csrc/quad.cu",
+                  "n_rows": rows.shape[0], "library_ms": None}
+        extra = {"fwd": {}, "bwd": {}}
+        if dtype == torch.float32:
+            extra = {d: {"bound_split_tf32_ms": t[f"{d}_bound_split_tf32_ms"]}
+                     for d in ("fwd", "bwd")}
+        rows_out.append({
             "name": f"mlp_quad_fwd_{name}", **common,
             "replaces": "havatar_tpu/ops/pallas_mlp_quad.py:186",
             "launches": launches["quad_fwd"], "max_abs_err": err_f,
             "ms": t["fwd_ms"], "plain_ms": t["fwd_plain_ms"],
             "bound_ms": t["fwd_bound_ms"], "bound_by": t["fwd_bound_by"],
-            "unfused_ms": t["unfused_fwd_ms"]})
-        rows.append({
+            **extra["fwd"], "unfused_ms": t["unfused_fwd_ms"],
+            "op_ms": t["op_fwd_ms"], "gather_ms": t["gather_ms"]})
+        rows_out.append({
             "name": f"mlp_quad_bwd_{name}", **common,
             "replaces": "havatar_tpu/ops/pallas_mlp_quad.py:235",
             "launches": launches["quad_bwd"], **err_b,
             "ms": t["bwd_ms"], "plain_ms": t["bwd_plain_ms"],
             "bound_ms": t["bwd_bound_ms"], "bound_by": t["bwd_bound_by"],
-            "unfused_ms": t["unfused_fwd_bwd_ms"] - t["unfused_fwd_ms"]})
-        del q, aux
+            **extra["bwd"],
+            "unfused_ms": t["unfused_fwd_bwd_ms"] - t["unfused_fwd_ms"],
+            "op_ms": t["op_fwd_bwd_ms"] - t["op_fwd_ms"],
+            "regather_splat_ms": t["regather_splat_ms"]})
+        del rows, aux
         torch.cuda.empty_cache()
-    return rows
+    return rows_out
 
 
 def mlp_kernel_rows(captured, main_counts, bf16_counts) -> list:

@@ -164,7 +164,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     p.add_argument("--sorted-scatter", action="store_true",
                    help="sort the fused quad op's plane-gradient rows by "
                         "destination before index_add_; touches only that "
-                        "splat (with --fused-quad)")
+                        "splat of the plain path (with --fused-quad on the "
+                        "CPU): the CUDA kernel splats in the kernel and has "
+                        "no scatter order to choose")
     p.add_argument("--turbo", action="store_true",
                    help="--fast-step --fused-quad --bf16 together")
     p.add_argument("--device", type=str, default=None,

@@ -1,7 +1,9 @@
 // The field MLP on tensor cores, shared by the CUDA sources that run it
 // (march.cu: the four fused march kernels; mlp.cu: the bf16 forwards of the
-// fused dense chain and of the quad field op), with the two input stages
-// (a copy of reduced rows, or the corner reduction of raw quad rows). A
+// fused dense chain and of the field kernel; quad.cu: the bf16 forward of
+// the quad field op), with three input stages (a copy of reduced rows, the
+// corner reduction of raw quad rows, or the gather and corner reduction of
+// the corner texels straight from the planes). A
 // persistent block stages the five weight matrices in
 // shared memory once (bf16, rows padded so MMA fragment loads hit distinct
 // banks); each of its 8 warps then owns 16 rows of a 128-row tile and runs
@@ -209,6 +211,59 @@ __device__ void build_inputs(unsigned char* smem, const Layout& L,
       *reinterpret_cast<bf162*>(xr + C + 2 * c2) =
           __floats2bfloat162_rn(zy0, zy1);
     }
+    for (int j = lane; j < n_pe; j += 32) xr[2 * C + j] = __float2bfloat16(a[j]);
+  }
+}
+
+// One warp: gather its 16 samples' bilinear corner texels from the two bf16
+// planes [H][W][C] (C = 64: a lane reads four channels, lanes 0-15 of the
+// XY plane, 16-31 of the ZY plane) by their quad rows (rows [N][2]: y0 * (W
+// - 1) + x0 of each plane's cell) and corner-reduce them in f32, each
+// product and sum rounded on its own in corner order (the plain twin's
+// arithmetic), into MLP input rows [xy | zy | posenc] in bf16. Rows at or
+// past `valid` are zero.
+__device__ void gather_inputs(unsigned char* smem, const Layout& L,
+                              const bf16* __restrict__ pxy,
+                              const bf16* __restrict__ pzy, int W,
+                              const int* __restrict__ rows,
+                              const float* __restrict__ aux, long pt0,
+                              int valid, int C, int n_pe, int warp,
+                              int lane) {
+  bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
+  const int naux = n_pe + 8;
+  const int p = lane >> 4, c = 4 * (lane & 15);
+  const bf16* plane = p ? pzy : pxy;
+  for (int i = 0; i < 16; ++i) {
+    const int r = warp * 16 + i;
+    bf16* xr = sX + r * L.ldx;
+    if (r >= valid) {
+      for (int j = lane; j < L.fin; j += 32) xr[j] = __float2bfloat16(0.f);
+      continue;
+    }
+    const float* a = aux + (pt0 + r) * long(naux);
+    const int q = rows[(pt0 + r) * 2 + p];
+    const bf16* t = plane + long(q + q / (W - 1)) * C + c;  // y0 * W + x0
+    float s[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint2 u = *reinterpret_cast<const uint2*>(
+          t + long((k >> 1) * W + (k & 1)) * C);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const bf162*>(&u.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const bf162*>(&u.y));
+      const float v[4] = {lo.x, lo.y, hi.x, hi.y};
+      const float w = a[n_pe + 4 * p + k];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float m = __fmul_rn(v[e], w);
+        s[e] = k ? __fadd_rn(s[e], m) : m;
+      }
+    }
+    const bf162 lo = __floats2bfloat162_rn(s[0], s[1]);
+    const bf162 hi = __floats2bfloat162_rn(s[2], s[3]);
+    uint2 o;
+    o.x = *reinterpret_cast<const uint32_t*>(&lo);
+    o.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(xr + p * C + c) = o;
     for (int j = lane; j < n_pe; j += 32) xr[2 * C + j] = __float2bfloat16(a[j]);
   }
 }

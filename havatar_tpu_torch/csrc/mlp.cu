@@ -9,28 +9,9 @@
 //   mlp_backward (float32 or bf16 x)
 //       -> havatar_tpu/ops/pallas_mlp.py:fused_mlp_chain, backward
 //          (Pallas kernel _mlp_bwd_kernel)
-//   mlp_quad_forward_f32, mlp_quad_forward_bf16
-//       -> havatar_tpu/ops/pallas_mlp_quad.py:field_radiance_quad, forward
-//          (Pallas kernel _fwd_kernel)
-//   mlp_quad_backward (float32 or bf16 quads)
-//       -> havatar_tpu/ops/pallas_mlp_quad.py:field_radiance_quad, backward
-//          (Pallas kernel _bwd_kernel)
 //   field_eval_f32, field_eval_bf16
 //       -> havatar_tpu/ops/pallas_field.py:fused_field_eval (Pallas kernel
 //          _field_kernel; inference only, no backward)
-//
-// The quad entry points are the same chain with one more step at each end.
-// Their input is a point's raw bilinear corner rows, quads [N, 8C] (four
-// corners of the XY plane, then four of the ZY plane, C = 64 channels each,
-// in the planes' type) and aux [N, 56] f32 (posenc (48) ++ the 8 corner
-// weights). A prologue corner-reduces them in f32 into the MLP input row
-// [xy (64) | zy (64) | posenc (48)], rounded to the chain's type: layer0
-// takes its input rows in that block order (the caller permutes w0 from the
-// reference's interleaved order). The backward's epilogue keeps dx in f32
-// and writes, instead of it, dq [N, 8C] f32 (dx_xy * w_k for the XY corners,
-// dx_zy * w_k for the ZY ones) and daux [N, 56] f32 = d(posenc) ++ dw[8],
-// dw[k] = sum over c of q[k*C + c] * dplane[c]. The gather before and the
-// splat of dq into the planes after stay in PyTorch (ops/mlp_quad.py).
 //
 // The function: x [N, 176] (plane features ++ posenc) through two 128-wide
 // relu layers, then the feature head (64) and the density head (1) off the
@@ -74,17 +55,7 @@
 //  * bf16 backward: the float32 engine with cdt = bf16 (operands rounded to
 //    bf16 where the function says so, products on FFMA). It computes the
 //    function exactly and leaves the tensor cores idle: a first version.
-//  * quad entry points: the quad rows add 8C values a row to read (2 KB in
-//    f32, 1 KB in bf16) and the backward 2 KB of dq to write, so the bf16
-//    pair becomes bound by bytes; the f32 pair stays bound by its FFMA
-//    products. The prologue is one warp a row, each lane two channels of
-//    each corner (coalesced 8- or 4-byte loads), summed in f32 in corner
-//    order without FMA (the twin's rounding, bit for bit). The epilogue
-//    puts the tile's f32 dx in shared memory (over the x tile, dead by
-//    then) and runs one warp a row again: it reads the quad rows a second
-//    time (from L2: a block's tile is 64 rows) for dw, with a warp
-//    reduction a corner, and writes dq with coalesced 8-byte stores.
-//  * field_eval entry points: the forward engines with a third input mode,
+//  * field_eval entry points: the forward engines with a second input mode,
 //    PE. Their input is the points [N, 3] f32 and the plane features
 //    [N, 128] (f32 for the FFMA engine, bf16 for the tensor-core one); the
 //    loader stages a tile's points (one contiguous 12-byte-a-row block, read
@@ -109,14 +80,13 @@ constexpr int NT = 256;    // threads a block, as 16 (rows) x 16 (columns)
 constexpr int KC = 16;     // weight rows a staged chunk
 constexpr int LDX = FIN + 4, LDH = HID + 4, LDD = CF + 4;  // f32 row strides
 constexpr int LDW = 192;   // staged chunk row: up to three 64-column groups
-// the quad entry points: C plane channels, posenc, aux row
-constexpr int QC = 64, NPE = FIN - 2 * QC, NAUX = NPE + 8;
-// the field_eval entry points: plane features a row, posenc frequencies
-constexpr int FEAT = FIN - NPE, NFREQ = NPE / 6;
+// the field_eval entry points: posenc columns, plane features a row, posenc
+// frequencies
+constexpr int NPE = 48, FEAT = FIN - NPE, NFREQ = NPE / 6;
 
-// What a forward's input rows are: x [N][FIN]; quads [N][8 QC] with aux
-// [N][NAUX]; or plane features [N][FEAT] with the points [N][3] (PE).
-enum class In { X, QUAD, PE };
+// What a forward's input rows are: x [N][FIN]; or plane features [N][FEAT]
+// with the points [N][3] (PE).
+enum class In { X, PE };
 
 // forward: x/h1 [TM][LDX] | h0/feat [TM][LDH] | weight stage [KC][LDW]
 constexpr int kFwdFloats = TM * LDX + TM * LDH + KC * LDW;
@@ -124,11 +94,10 @@ constexpr int kFwdFloats = TM * LDX + TM * LDH + KC * LDW;
 constexpr int kBiasFloats = HID + HID + LDD + 4;
 constexpr int kBwdFloats =
     TM * LDX + 2 * TM * LDH + 2 * TM * LDD + KC * LDW + kBiasFloats;
-constexpr int kQuadFloats = TM * 8;  // the quad entry points' corner weights
 constexpr int kPeFloats = TM * 3;    // the field_eval entry points' points
 
 constexpr int extra_floats(In in) {
-  return in == In::QUAD ? kQuadFloats : in == In::PE ? kPeFloats : 0;
+  return in == In::PE ? kPeFloats : 0;
 }
 
 struct Params {
@@ -240,92 +209,6 @@ __device__ void pe_inputs(unsigned char* smem, const Layout& L,
     const int row = i / NPE, j = i % NPE;
     sX[row * L.ldx + FEAT + j] =
         __float2bfloat16(row < rows ? posenc(P + 3 * row, j) : 0.f);
-  }
-}
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 ld2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
-}
-
-// Quad rows q [rows][8 QC] (type T) and aux [rows][NAUX] into the float tile
-// X as MLP input rows [xy | zy | posenc], rounded to T; the 8 corner weights
-// of each row into W8 [TM][8]. One warp a row. Rows at or past `valid` are
-// zero.
-template <typename T>
-__device__ __forceinline__ void load_quad_rows(float* X, float* W8,
-                                               const T* __restrict__ q,
-                                               const float* __restrict__ aux,
-                                               int valid) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < TM; r += NT / 32) {
-    float* xr = X + r * LDX;
-    if (r >= valid) {
-      for (int c = lane; c < FIN; c += 32) xr[c] = 0.f;
-      if (lane < 8) W8[r * 8 + lane] = 0.f;
-      continue;
-    }
-    const float* a = aux + size_t(r) * NAUX;
-    const T* qr = q + size_t(r) * (8 * QC) + 2 * lane;
-    float w[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) w[k] = __ldg(a + NPE + k);
-    // products and sums rounded one by one, in corner order (no FMA): the
-    // reduced input is then the plain twin's to the bit, so kernel and twin
-    // see the same ReLU masks where an activation sits near its kink
-    float2 xy = make_float2(0.f, 0.f), zy = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 v = ld2(qr + k * QC), u = ld2(qr + (4 + k) * QC);
-      xy.x = __fadd_rn(xy.x, __fmul_rn(v.x, w[k]));
-      xy.y = __fadd_rn(xy.y, __fmul_rn(v.y, w[k]));
-      zy.x = __fadd_rn(zy.x, __fmul_rn(u.x, w[4 + k]));
-      zy.y = __fadd_rn(zy.y, __fmul_rn(u.y, w[4 + k]));
-    }
-    *reinterpret_cast<float2*>(xr + 2 * lane) =
-        make_float2(rnd<T>(xy.x), rnd<T>(xy.y));
-    *reinterpret_cast<float2*>(xr + QC + 2 * lane) =
-        make_float2(rnd<T>(zy.x), rnd<T>(zy.y));
-    for (int j = lane; j < NPE; j += 32) xr[2 * QC + j] = rnd<T>(__ldg(a + j));
-    if (lane < 8) W8[r * 8 + lane] = __ldg(a + NPE + lane);
-  }
-}
-
-// The quad backward's epilogue for one tile: Dx [TM][LDX] holds the tile's
-// f32 dx. One warp a row: dq = dx_plane * w_k for each corner k, dw[k] = the
-// sum over channels of q * dx_plane (a warp reduction), d(posenc) = dx's
-// tail; daux = [d(posenc) | dw]. Rows at or past `valid` write nothing.
-template <typename T>
-__device__ __forceinline__ void store_quad_grads(const float* Dx,
-                                                 const float* W8,
-                                                 const T* __restrict__ q,
-                                                 float* __restrict__ dq,
-                                                 float* __restrict__ daux,
-                                                 int valid) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < valid; r += NT / 32) {
-    const float* dr = Dx + r * LDX;
-    const T* qr = q + size_t(r) * (8 * QC) + 2 * lane;
-    float* dqr = dq + size_t(r) * (8 * QC) + 2 * lane;
-    float* da = daux + size_t(r) * NAUX;
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const float2 d = *reinterpret_cast<const float2*>(dr + p * QC + 2 * lane);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int kk = 4 * p + k;
-        const float w = W8[r * 8 + kk];
-        *reinterpret_cast<float2*>(dqr + kk * QC) = make_float2(d.x * w, d.y * w);
-        const float2 v = ld2(qr + kk * QC);
-        float s = fmaf(v.x, d.x, v.y * d.y);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (lane == 0) da[NPE + kk] = s;
-      }
-    }
-    for (int j = lane; j < NPE; j += 32) da[j] = dr[2 * QC + j];
   }
 }
 
@@ -519,7 +402,6 @@ __device__ __forceinline__ void store4(bf16* p, float a, float b, float c,
 // forward, float32
 // ---------------------------------------------------------------------------
 
-// QUAD: x is quads [N][8 QC] with aux [N][NAUX] (see the top of the file).
 // PE: x is the plane features [N][FEAT] and aux the points [N][3].
 template <typename T, In IN>
 __global__ void __launch_bounds__(NT, 2)
@@ -529,16 +411,14 @@ mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ aux,
   float* X = sm;             // x, then h1
   float* H = X + TM * LDX;   // h0, then rnd(feat) with row stride LDD
   float* Ws = H + TM * LDH;
-  float* Ex = Ws + KC * LDW;  // QUAD: the tile's corner weights; PE: points
+  float* Ex = Ws + KC * LDW;  // PE: the tile's points
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const long long ntiles = (N + TM - 1) / TM;
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long row0 = tile * TM;
     const int valid = int(N - row0 < TM ? N - row0 : TM);
     __syncthreads();  // the tile before is done with X, H and Ex
-    if constexpr (IN == In::QUAD)
-      load_quad_rows(X, Ex, x + row0 * (8 * QC), aux + row0 * NAUX, valid);
-    else if constexpr (IN == In::PE)
+    if constexpr (IN == In::PE)
       load_pe_rows(X, Ex, aux + row0 * 3, x + row0 * FEAT, valid);
     else
       load_rows(X, x + row0 * FIN, valid);
@@ -591,13 +471,11 @@ mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ aux,
 // backward, float32 or bf16 x
 // ---------------------------------------------------------------------------
 
-// QUAD: x is quads [N][8 QC] with aux [N][NAUX]; dx_out is dq [N][8 QC] f32
-// and daux [N][NAUX] f32 is written too. Else dx_out is dx [N][FIN] in T.
-template <typename T, bool QUAD>
+// dx [N][FIN] is written in T.
+template <typename T>
 __global__ void __launch_bounds__(NT, 1)
-mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ aux,
-               const float* __restrict__ g, Params p, void* __restrict__ dx_out,
-               float* __restrict__ daux, Grads gr, long long N) {
+mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ g, Params p,
+               T* __restrict__ dx, Grads gr, long long N) {
   extern __shared__ __align__(16) float sm[];
   float* X = sm;               // x
   float* H0 = X + TM * LDX;    // h0, then da0
@@ -609,7 +487,6 @@ mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ aux,
   float* sB1 = sB0 + HID;
   float* sBh = sB1 + HID;      // [65]
   float* sBr = sBh + LDD;      // [3]
-  float* W8 = sBr + 4;         // QUAD: the tile's corner weights [TM][8]
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   for (int i = tid; i < kBiasFloats; i += NT) sB0[i] = 0.f;
   const long long ntiles = (N + TM - 1) / TM;
@@ -617,10 +494,7 @@ mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ aux,
     const long long row0 = tile * TM;
     const int valid = int(N - row0 < TM ? N - row0 : TM);
     __syncthreads();  // the tile before is done with every buffer
-    if constexpr (QUAD)
-      load_quad_rows(X, W8, x + row0 * (8 * QC), aux + row0 * NAUX, valid);
-    else
-      load_rows(X, x + row0 * FIN, valid);
+    load_rows(X, x + row0 * FIN, valid);
     for (int i = tid; i < TM * (NOUT / 4); i += NT) {
       const int r = i / (NOUT / 4), c = (i % (NOUT / 4)) * 4;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -716,22 +590,12 @@ mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ aux,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = ty * 4 + i;
-          if constexpr (QUAD)
-            store4(X + r * LDX + col, acc3[i][4 * gq + 0],
+          if (r < valid)
+            store4(dx + (row0 + r) * FIN + col, acc3[i][4 * gq + 0],
                    acc3[i][4 * gq + 1], acc3[i][4 * gq + 2],
                    acc3[i][4 * gq + 3]);
-          else if (r < valid)
-            store4(static_cast<T*>(dx_out) + (row0 + r) * FIN + col,
-                   acc3[i][4 * gq + 0], acc3[i][4 * gq + 1],
-                   acc3[i][4 * gq + 2], acc3[i][4 * gq + 3]);
         }
       }
-    }
-    if constexpr (QUAD) {
-      __syncthreads();
-      store_quad_grads(X, W8, x + row0 * (8 * QC),
-                       static_cast<float*>(dx_out) + row0 * (8 * QC),
-                       daux + row0 * NAUX, valid);
     }
   }
   __syncthreads();
@@ -748,9 +612,8 @@ mlp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ aux,
 // forward, bf16: the march kernels' tensor-core chain, rows written out
 // ---------------------------------------------------------------------------
 
-// QUAD: x is quads [N][8 QC] bf16 with aux [N][NAUX] f32, corner-reduced by
-// build_inputs as in the march kernels. PE: x is the plane features
-// [N][FEAT] bf16 and aux the points [N][3] f32 (pe_inputs).
+// PE: x is the plane features [N][FEAT] bf16 and aux the points [N][3] f32
+// (pe_inputs).
 template <int H, int CFT, In IN>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ aux,
@@ -767,9 +630,7 @@ mlp_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ aux,
     const long long pt0 = tile * kPoints;
     const int valid = int(N - pt0 < kPoints ? N - pt0 : kPoints);
     __syncthreads();  // weights staged
-    if constexpr (IN == In::QUAD)
-      build_inputs(smem, L, x, aux, long(pt0), valid, QC, NPE, warp, lane);
-    else if constexpr (IN == In::PE)
+    if constexpr (IN == In::PE)
       pe_inputs(smem, L, x, aux, long(pt0), valid, warp, lane);
     else
       copy_inputs(smem, L, x, long(pt0), valid, warp, lane);
@@ -817,17 +678,15 @@ int launch_fwd_mma(const bf16* x, const float* aux, const Weights& w,
   return int(cudaGetLastError());
 }
 
-template <typename T, bool QUAD>
-int launch_bwd(const T* x, const float* aux, const float* g, const Params& p,
-               void* dx_out, float* daux, const Grads& gr, long long N,
-               void* stream) {
-  auto kern = mlp_bwd_kernel<T, QUAD>;
-  const size_t bytes = size_t(kBwdFloats + (QUAD ? kQuadFloats : 0)) * 4;
+template <typename T>
+int launch_bwd(const T* x, const float* g, const Params& p, T* dx,
+               const Grads& gr, long long N, void* stream) {
+  auto kern = mlp_bwd_kernel<T>;
+  const size_t bytes = size_t(kBwdFloats) * 4;
   int grid = 0;
   cudaError_t e = launch_config(kern, NT, bytes, (N + TM - 1) / TM, &grid);
   if (e != cudaSuccess) return int(e);
-  kern<<<grid, NT, bytes, (cudaStream_t)stream>>>(x, aux, g, p, dx_out, daux,
-                                                  gr, N);
+  kern<<<grid, NT, bytes, (cudaStream_t)stream>>>(x, g, p, dx, gr, N);
   return int(cudaGetLastError());
 }
 
@@ -896,49 +755,10 @@ int mlp_backward(const void* x, const void* g, const void* w0_kn,
                  (float*)dwr, (float*)db0, (float*)db1, (float*)dbf,
                  (float*)dba, (float*)dbr};
   if (x_is_bf16)
-    return launch_bwd<bf16, false>((const bf16*)x, nullptr, (const float*)g,
-                                   p, dx, nullptr, gr, N, stream);
-  return launch_bwd<float, false>((const float*)x, nullptr, (const float*)g,
-                                  p, dx, nullptr, gr, N, stream);
-}
-
-// quads [N][512] f32 and aux [N][56] f32 -> out [N][68] f32. Weights as for
-// mlp_forward_f32, with w0_kn's 176 input rows in block order.
-int mlp_quad_forward_f32(const void* quads, const void* aux,
-                         const void* w0_kn, const void* w1_kn,
-                         const void* wf_kn, const void* wa, const void* wr,
-                         const void* b0, const void* b1, const void* bf,
-                         const void* ba, const void* br, void* out,
-                         long long N, int c, int n_pe, int hid, int cf,
-                         void* stream) {
-  if (!widths_ok(2 * c + n_pe, hid, cf) || c != QC || N < 0)
-    return int(cudaErrorInvalidValue);
-  if (N == 0) return int(cudaSuccess);
-  Params p{};
-  p.w0_kn = (const float*)w0_kn; p.w1_kn = (const float*)w1_kn;
-  p.wf_kn = (const float*)wf_kn; p.wa = (const float*)wa;
-  p.wr = (const float*)wr; p.b0 = (const float*)b0; p.b1 = (const float*)b1;
-  p.bf = (const float*)bf; p.ba = (const float*)ba; p.br = (const float*)br;
-  return launch_fwd_f32<In::QUAD>((const float*)quads, (const float*)aux, p,
-                                  (float*)out, N, stream);
-}
-
-// quads [N][512] bf16 and aux [N][56] f32 -> out [N][68] f32. Weights as for
-// mlp_forward_bf16, with w0's 176 input columns in block order.
-int mlp_quad_forward_bf16(const void* quads, const void* aux, const void* w0,
-                          const void* b0, const void* w1, const void* b1,
-                          const void* wh, const void* bh, const void* wr,
-                          const void* br, void* out, long long N, int c,
-                          int n_pe, int hid, int cf, void* stream) {
-  if (!widths_ok(2 * c + n_pe, hid, cf) || c != QC || N < 0)
-    return int(cudaErrorInvalidValue);
-  if (N == 0) return int(cudaSuccess);
-  const Layout L = make_layout<HID, CF>(FIN, 0);
-  const Weights w{(const bf16*)w0, (const bf16*)w1, (const bf16*)wh,
-                  (const bf16*)wr, (const float*)b0, (const float*)b1,
-                  (const float*)bh, (const float*)br};
-  return launch_fwd_mma<In::QUAD>((const bf16*)quads, (const float*)aux, w,
-                                  (float*)out, N, L, stream);
+    return launch_bwd((const bf16*)x, (const float*)g, p, (bf16*)dx, gr, N,
+                      stream);
+  return launch_bwd((const float*)x, (const float*)g, p, (float*)dx, gr, N,
+                    stream);
 }
 
 // pts [N][3] f32 and plane features [N][128] f32 -> out [N][68] f32: posenc
@@ -982,40 +802,6 @@ int field_eval_bf16(const void* pts, const void* feat, const void* w0,
                   (const float*)bh, (const float*)br};
   return launch_fwd_mma<In::PE>((const bf16*)feat, (const float*)pts, w,
                                 (float*)out, N, L, stream);
-}
-
-// quads [N][512] (f32, or bf16 when quads_are_bf16), aux [N][56] f32, g
-// [N][68] f32 -> dq [N][512] f32, daux [N][56] f32 and the float32 weight
-// gradients (zeroed by the caller; dw0 with its rows in block order).
-// Weights as for mlp_backward, w0 in block order.
-int mlp_quad_backward(const void* quads, const void* aux, const void* g,
-                      const void* w0_kn, const void* w1_kn, const void* wf_kn,
-                      const void* w0, const void* w1, const void* wf,
-                      const void* wa, const void* wr, const void* b0,
-                      const void* b1, const void* bf, void* dq, void* daux,
-                      void* dw0, void* dw1, void* dwf, void* dwa, void* dwr,
-                      void* db0, void* db1, void* dbf, void* dba, void* dbr,
-                      long long N, int c, int n_pe, int hid, int cf,
-                      int quads_are_bf16, void* stream) {
-  if (!widths_ok(2 * c + n_pe, hid, cf) || c != QC || N < 0)
-    return int(cudaErrorInvalidValue);
-  if (N == 0) return int(cudaSuccess);
-  Params p{};
-  p.w0_kn = (const float*)w0_kn; p.w1_kn = (const float*)w1_kn;
-  p.wf_kn = (const float*)wf_kn; p.w0 = (const float*)w0;
-  p.w1 = (const float*)w1; p.wf = (const float*)wf; p.wa = (const float*)wa;
-  p.wr = (const float*)wr; p.b0 = (const float*)b0; p.b1 = (const float*)b1;
-  p.bf = (const float*)bf;
-  const Grads gr{(float*)dw0, (float*)dw1, (float*)dwf, (float*)dwa,
-                 (float*)dwr, (float*)db0, (float*)db1, (float*)dbf,
-                 (float*)dba, (float*)dbr};
-  if (quads_are_bf16)
-    return launch_bwd<bf16, true>((const bf16*)quads, (const float*)aux,
-                                  (const float*)g, p, dq, (float*)daux, gr, N,
-                                  stream);
-  return launch_bwd<float, true>((const float*)quads, (const float*)aux,
-                                 (const float*)g, p, dq, (float*)daux, gr, N,
-                                 stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,8 @@ layers:
   forward and backward are one CUDA kernel each (JAX: ``use_pallas_mlp``),
   or with ``use_fused_quad`` (which takes precedence) the op
   ``ops/mlp_quad.py:field_radiance_quad`` on each batch item, whose kernels
-  also take in the corner reduction (JAX: ``use_pallas_mlp_quad``);
+  also take in the gather of the corner texels, the corner reduction and
+  the splat of the plane gradients (JAX: ``use_pallas_mlp_quad``);
 * ``field_inputs``: that chain's input alone, [B, N, 2C + posenc] in the
   compute dtype and the reference's interleaved channel order, for the
   reduced-input march kernels (``march_params(dtype, permute=False)``);
@@ -61,7 +62,8 @@ class DoublePlaneNeRFField(nn.Module):
         super().__init__()
         self.use_fused_mlp = use_fused_mlp
         self.use_fused_quad = use_fused_quad
-        self.sorted_scatter = sorted_scatter   # the quad op's plane splat
+        # the quad op's plain splat (the CUDA kernel has no order to choose)
+        self.sorted_scatter = sorted_scatter
         self.num_encoding_fn_xyz = num_encoding_fn_xyz
         self.plane_feat_dim = plane_feat_dim
         self.enc_mode = enc_mode

@@ -122,24 +122,29 @@ def test_op_matches_jax_bfloat16():
 
 def test_kernel_halves_twins_and_double_backward():
     """quad_forward / quad_backward on CPU tensors are the twins: the
-    forward twin differentiated by autograd gives the backward twin's
-    dq, daux and parameter gradients (atol 1e-5); the op refuses a second
-    differentiation; inputs that are not [N, 8C] x [N, n_pe + 8] raise."""
+    forward twin differentiated by autograd gives the backward twin's plane
+    gradients, daux and parameter gradients (atol 1e-5); the op refuses a
+    second differentiation; inputs that are not planes [H, W, C], rows
+    [N, 2] and aux [N, n_pe + 8] raise."""
     rng = np.random.RandomState(0)
-    N, C, n_pe = 50, 8, 12
-    q = torch.from_numpy(rng.randn(N, 8 * C).astype(np.float32))
+    N, C, n_pe, H, W = 50, 8, 12, 9, 7
+    planes = [torch.from_numpy(rng.randn(H, W, C).astype(np.float32))
+              for _ in range(2)]
+    rows = torch.from_numpy(np.stack(
+        [rng.randint(0, (H - 1) * (W - 1), N) for _ in range(2)], 1)
+        .astype(np.int32))
     aux = torch.from_numpy(rng.rand(N, n_pe + 8).astype(np.float32))
     g = torch.from_numpy(rng.randn(N, 20).astype(np.float32))
     _, _, _, _, prm, _ = setup_case(N=N, C=C, n_pe=n_pe)
     params = _torch_params(prm)
-    q.requires_grad_()
-    aux.requires_grad_()
-    out = Q.quad_forward(q, aux, *params)
+    leaves = [t.requires_grad_() for t in (*planes, aux)]
+    out = Q.quad_forward(*planes, rows, aux, *params)
     assert not out.requires_grad and out.shape == (N, 20)
-    want = torch.autograd.grad(Q.field_radiance_quad_plain(q, aux, *params),
-                               (q, aux, *params), g)
-    dq, daux, grads = Q.quad_backward(q, aux, g, *params)
-    for a, b in zip((dq, daux, *grads), want):
+    want = torch.autograd.grad(
+        Q.field_radiance_quad_plain(*planes, rows, aux, *params),
+        (*leaves, *params), g)
+    dxy, dzy, daux, grads = Q.quad_backward(*planes, rows, aux, g, *params)
+    for a, b in zip((dxy, dzy, daux, *grads), want):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
     pxy, pzy, w, pe, prm, _ = setup_case(N=N)
@@ -151,8 +156,84 @@ def test_kernel_halves_twins_and_double_backward():
     (d,) = torch.autograd.grad(out.sum(), planes[0], create_graph=True)
     with pytest.raises(RuntimeError):
         d.sum().backward()
-    with pytest.raises(ValueError, match="quads"):
-        Q.quad_forward(q[:, :-1], aux, *params)
+    with pytest.raises(ValueError, match="rows"):
+        Q.quad_forward(planes[0], planes[1], rows[:, :1], aux, *params)
+    with pytest.raises(ValueError, match="planes"):
+        Q.quad_forward(planes[0], planes[1][:-1], rows, aux, *params)
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+def test_kernel_halves_match_jax(padding):
+    """The kernel halves' twins at the kernels' contract (planes, rows from
+    ``quad_rows``, aux = posenc ++ w8, cotangent) against havatar_tpu's op
+    in interpret mode at a ragged N: the output (1e-5) and the gradients of
+    both planes, the posenc and all ten parameters (1e-4)."""
+    inputs, want, jgrads = _jax_case(97, 3, padding, jnp.float32)
+    pxy, pzy, w, pe, prm, cot = inputs
+    planes = [torch.from_numpy(np.array(p, np.float32)) for p in (pxy, pzy)]
+    H, W, _ = planes[0].shape
+    rows, w8 = Q.quad_rows(torch.from_numpy(np.array(w)), H, W, padding)
+    assert rows.dtype == torch.int32 and rows.shape == (97, 2)
+    aux = torch.cat([torch.from_numpy(np.array(pe)), w8], -1)
+    params = [p.detach() for p in _torch_params(prm)]
+    out = Q.quad_forward(*planes, rows, aux, *params)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    dxy, dzy, daux, grads = Q.quad_backward(
+        *planes, rows, aux, torch.from_numpy(np.asarray(cot)), *params)
+    got = [dxy, dzy, daux[:, :pe.shape[1]], *grads]
+    want_g = _want_list(jgrads)
+    for i, (a, b) in enumerate(zip(got, want_g[:2] + want_g[3:])):
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4,
+                                   err_msg=str(i))
+
+
+def _gather_by_index(pxy, pzy, rows):
+    """Each point's 4 + 4 corner texels by plain indexing (differentiable),
+    independent of the quad table: [N, 8C]."""
+    W = pxy.shape[1]
+    out = []
+    for p, plane in enumerate((pxy, pzy)):
+        q = rows[:, p].long()
+        y0, x0 = q // (W - 1), q % (W - 1)
+        out += [plane[y0 + dy, x0 + dx] for dy in (0, 1) for dx in (0, 1)]
+    return torch.cat(out, 1)
+
+
+@pytest.mark.parametrize("N,padding,dtype,sorted_scatter", [
+    (97, "zeros", torch.float32, False), (64, "border", torch.float32, True),
+    (131, "zeros", torch.bfloat16, False),
+    (45, "border", torch.bfloat16, True)])
+def test_twins_match_the_composition(N, padding, dtype, sorted_scatter):
+    """The twins at the new contract against the composition they replace:
+    the corner texels gathered by plain indexing, the chain on them
+    (``quad_chain_plain`` / ``quad_chain_bwd_plain``) and, for the plane
+    gradients, autograd's adjoint of that gather. Forward, daux and the
+    parameter gradients bit for bit; the plane gradients (a sum in another
+    order) to 1e-5."""
+    pxy, pzy, w, pe, prm, cot = setup_case(N=N, seed=7)
+    planes = [torch.from_numpy(np.array(p)).to(dtype) for p in (pxy, pzy)]
+    H, W, _ = planes[0].shape
+    rows, w8 = Q.quad_rows(torch.from_numpy(np.array(w)), H, W, padding)
+    aux = torch.cat([torch.from_numpy(np.array(pe)), w8], -1)
+    g = torch.from_numpy(np.asarray(cot))
+    params = [p.detach() for p in _torch_params(prm)]
+    quads = _gather_by_index(*planes, rows)
+    assert torch.equal(Q.gather_rows(*planes, rows), quads)
+    out = Q.field_radiance_quad_plain(*planes, rows, aux, *params)
+    assert torch.equal(out, Q.quad_chain_plain(quads, aux, *params))
+    dxy, dzy, daux, grads = Q.field_radiance_quad_bwd_plain(
+        *planes, rows, aux, g, *params, sorted_scatter=sorted_scatter)
+    dq, w_daux, w_grads = Q.quad_chain_bwd_plain(quads, aux, g, *params)
+    assert torch.equal(daux, w_daux)
+    for a, b in zip(grads, w_grads):
+        assert torch.equal(a, b)
+    leaves = [p.float().requires_grad_() for p in planes]
+    w_dxy, w_dzy = torch.autograd.grad(_gather_by_index(*leaves, rows),
+                                       leaves, dq)
+    assert dxy.dtype == dzy.dtype == torch.float32
+    torch.testing.assert_close(dxy, w_dxy, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dzy, w_dzy, atol=1e-5, rtol=1e-5)
 
 
 def test_stage1_step_takes_the_quad_op_and_matches_jax():
