@@ -37,9 +37,13 @@ with a non-zero exit at the first failure:
    ``make_reenact_fn`` on the same tensors, exact against fast, and each
    run's frames/s beside phase 4's bare frame rate.
 7. the dense-chain kernels (``csrc/mlp.cu``: forward and backward, float32
-   and bf16) vs their plain twins on seeded inputs at N = 131,072 rows (a
-   stage-1 step's fine call; the coarse call of a 2 x 1024-ray step), 32,768
-   and an N no tile divides (100,003); timed at 1,048,576 (stage 2's).
+   and bf16; the backward on ``csrc/chain_bwd.cuh``'s body) vs their plain
+   twins on seeded inputs at N = 524,288 and 131,072 rows (a stage-1 step's
+   coarse and fine calls), 32,768 and an N no tile divides (100,003); two
+   backward launches at 524,288 must give the same dx and parameter
+   gradients bit for bit; timed at 524,288 and at 1,048,576 (stage 2's
+   rows), with the bound on the kernels' route (float32: split TF32, the
+   backward's recompute on FFMA) beside the bound on FFMA alone.
 8. train: a seeded training set (512^2 target images and masks, two
    cameras, eight frames, condition PNGs) is written to a temporary
    directory and trained on through ``havatar_tpu_torch.cli.train_avatar.
@@ -84,7 +88,10 @@ with a non-zero exit at the first failure:
    point ``havatar_tpu_torch.scripts.micro_field.main`` at N = 1,310,720.
    Launch counts equal the calls made.
 11. one JSON line listing each kernel: launches, error against its twin,
-   its time, the twin's time and its bound on this card; the dense-chain,
+   its time, the twin's time and its bound on this card on the route its
+   products take (``products``: bf16 tensor cores, FFMA, or split TF32
+   with the backward's recompute on FFMA; the float32 rows also give the
+   bound on the other float32 route); the dense-chain,
    quad and field rows also carry the time of the unfused chain (five
    ``F.linear`` calls, for the quad rows after the bilinear gathers and
    for the field rows after posenc, and autograd's backward); the quad rows
@@ -128,8 +135,8 @@ HBM_BYTES_S = 3.35e12
 BF16_TC_OPS_S = 989e12
 F32_OPS_S = 67e12
 # float32 products as split TF32 on the tensor cores (three TF32 products,
-# 495 TFLOP/s dense, for one): what the quad kernels' float32 products would
-# be bound by on that route, printed beside the FFMA bound they run at
+# 495 TFLOP/s dense, for one): the rate of the float32 chain kernels'
+# tensor-core products (csrc/chain_bwd.cuh)
 TF32_SPLIT_OPS_S = 495e12 / 3
 
 R_FRAME, S_COARSE, S_FINE, C, N_PE = 16384, 16, 16, 64, 48
@@ -163,6 +170,9 @@ MLP_F32_GRAD_ATOL, MLP_F32_GRAD_RTOL = 1e-4, 1e-4
 MLP_BF16_FWD_TOL = dict(atol=3e-2, rtol=3e-2)
 MLP_BF16_GRAD_REL_L2 = 2e-2
 MLP_TAIL_N = 100003                           # no tile divides it
+# a stage-1 step's coarse and fine calls (2 x 4096 rays, 64 + 16 samples),
+# a smaller N and a ragged one
+MLP_NS = (524288, 131072, 32768, MLP_TAIL_N)
 MLP_STAGE2_N = 128 * 128 * 64                 # a stage-2 generator step's rows
 
 TRAIN_CONFIG = "singleview_512_base.yml"      # built into the port
@@ -208,11 +218,14 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _bound_ms(nbytes: int, tc_ops: float, f32_ops: float):
+def _bound_ms(nbytes: int, tc_ops: float, f32_ops: float,
+              split_ops: float = 0.0):
     """Least time on an H100 for the work: the larger of bytes over HBM
-    rate and operations over their peak rates."""
+    rate and operations over their peak rates (bf16 tensor cores, FFMA,
+    split TF32)."""
     t_bytes = nbytes / HBM_BYTES_S
-    t_ops = tc_ops / BF16_TC_OPS_S + f32_ops / F32_OPS_S
+    t_ops = (tc_ops / BF16_TC_OPS_S + f32_ops / F32_OPS_S
+             + split_ops / TF32_SPLIT_OPS_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1055,19 +1068,41 @@ def _mlp_macs() -> tuple:
     return fwd, (l0 + l1 + lf) + fwd + fwd
 
 
-def mlp_bound(x, params, backward: bool):
+def chain_ops(n: int, backward: bool, route: str) -> tuple:
+    """Operations of the dense chain on n rows by the rate they run at:
+    (bf16 tensor cores, FFMA, split TF32). ``route`` "bf16": every product
+    on bf16 tensor cores; "ffma": every product on FFMA; "split" (the
+    float32 kernels of csrc/mlp.cu and the quad backward): the three wide
+    products on split TF32, except the backward's recompute of them on
+    FFMA; the heads' small products (fc_alpha, fc_rgb) on FFMA."""
+    from havatar_tpu_torch.ops.mlp import CF, FIN, HID
+    fwd, bwd = _mlp_macs()
+    macs = bwd if backward else fwd
+    if route == "bf16":
+        return 2.0 * n * macs, 0.0, 0.0
+    if route == "ffma":
+        return 0.0, 2.0 * n * macs, 0.0
+    wide = FIN * HID + HID * HID + HID * CF
+    split = 2 * wide if backward else wide
+    return 0.0, 2.0 * n * (macs - split), 2.0 * n * split
+
+
+def mlp_route(dtype) -> str:
+    """The products' route of the dense-chain kernels for x in dtype."""
+    return "bf16" if dtype == torch.bfloat16 else "split"
+
+
+def mlp_bound(x, params, backward: bool, route: str = None):
     """Bound of a dense-chain kernel from its call's arguments: x, the
     parameters and the [N, 68] float32 output move once (the backward reads
     that much cotangent and also writes dx and the parameter gradients); the
-    products run at the rate of x's type."""
+    products run at the rates of ``route`` (by default the kernels' own)."""
     n = x.shape[0]
-    fwd, bwd = _mlp_macs()
     nbytes = _nbytes(x, *params) + n * 68 * 4
     if backward:
         nbytes += _nbytes(x, *params)
-    ops = 2.0 * n * (bwd if backward else fwd)
-    bf16 = x.dtype == torch.bfloat16
-    return _bound_ms(nbytes, ops if bf16 else 0.0, 0.0 if bf16 else ops)
+    return _bound_ms(nbytes, *chain_ops(n, backward,
+                                        route or mlp_route(x.dtype)))
 
 
 def _mlp_params(gen, dev) -> tuple:
@@ -1134,66 +1169,55 @@ def compare_mlp_backward(got, want, dtype, where: str) -> dict:
                             MLP_GRAD_NAMES, dtype, where)
 
 
-def _unfused_chain(x, params, g=None):
-    """The chain as the field runs it without the fused op: five
-    ``F.linear`` calls in x's type; with ``g`` also autograd's backward to x
-    and every parameter."""
-    import torch.nn.functional as F
-    if g is not None:
-        x = x.detach().requires_grad_()
-        params = [p.detach().requires_grad_() for p in params]
-    w0, b0, w1, b1, wf, bf, wa, ba, wr, br = params
-    cdt = x.dtype
-
-    def dense(h, w, b):
-        return F.linear(h, w.to(cdt), b.to(cdt))
-
-    h = torch.relu(dense(torch.relu(dense(x, w0, b0)), w1, b1))
-    feat = dense(h, wf, bf)
-    out = torch.cat([dense(feat, wr, br).float(), feat.float(),
-                     dense(h, wa, ba).float()], -1)
-    if g is not None:
-        return torch.autograd.grad(out, (x, *params), g)
-    return out
-
-
 def mlp_timings(x, g, params) -> dict:
-    """CUDA-event times at one call's arguments: the two kernels, their
-    twins, the unfused chain (forward, and forward with backward), and the
-    two bounds."""
+    """CUDA-event times at one call's arguments: the two kernels and the
+    unfused chain (``scripts/micro_mlp.py``'s timings), their twins, and
+    the bounds on the kernels' route and on FFMA alone."""
     from havatar_tpu_torch.ops import mlp as M
-    big = x.shape[0] > 500_000
-    it, it_plain = (5, 2) if big else (20, 5)
+    from havatar_tpu_torch.scripts import micro_mlp
     with torch.no_grad():
-        t = {"fwd_ms": _time_ms(lambda: M.mlp_forward(x, *params), it),
-             "bwd_ms": _time_ms(lambda: M.mlp_backward(x, g, *params), it),
-             "fwd_plain_ms": _time_ms(
-                 lambda: M.fused_mlp_chain_plain(x, *params), it_plain, 1),
-             "bwd_plain_ms": _time_ms(
-                 lambda: M.fused_mlp_chain_bwd_plain(x, g, *params),
-                 it_plain, 1),
-             "unfused_fwd_ms": _time_ms(lambda: _unfused_chain(x, params),
-                                        it_plain, 1)}
-    t["unfused_fwd_bwd_ms"] = _time_ms(lambda: _unfused_chain(x, params, g),
-                                       it_plain, 1)
-    (t["fwd_bound_ms"], t["fwd_bound_by"]) = mlp_bound(x, params, False)
-    (t["bwd_bound_ms"], t["bwd_bound_by"]) = mlp_bound(x, params, True)
+        t = micro_mlp.timings(x, g, params, x.device)
+        it_plain = 2 if x.shape[0] > 500_000 else 5
+        t["fwd_plain_ms"] = _time_ms(
+            lambda: M.fused_mlp_chain_plain(x, *params), it_plain, 1)
+        t["bwd_plain_ms"] = _time_ms(
+            lambda: M.fused_mlp_chain_bwd_plain(x, g, *params), it_plain, 1)
+    for d, backward in (("fwd", False), ("bwd", True)):
+        (t[f"{d}_bound_ms"], t[f"{d}_bound_by"]) = mlp_bound(x, params,
+                                                             backward)
+        if x.dtype == torch.float32:
+            t[f"{d}_bound_ffma_ms"] = mlp_bound(x, params, backward,
+                                                "ffma")[0]
     return t
+
+
+def _grads_bit_identical(x, g, params, where: str) -> None:
+    """Two backward launches on the same inputs: the same dx and parameter
+    gradients bit for bit (no atomics)."""
+    from havatar_tpu_torch.ops import mlp as M
+    with torch.no_grad():
+        a = M.mlp_backward(x, g, *params)
+        b = M.mlp_backward(x, g, *params)
+    torch.cuda.synchronize()
+    _check(torch.equal(a[0], b[0]) and all(
+        torch.equal(p, q) for p, q in zip(a[1], b[1])),
+        f"{where}: two backward launches differ in dx or a parameter "
+        f"gradient")
 
 
 def phase_mlp_kernels(dev) -> None:
     """Kernels 5 and 6 against their twins on seeded inputs, float32 and
-    bf16, at 131,072 and 32,768 rows and at a ragged N; the run-to-run
-    difference of the atomically summed weight gradients; times at the
-    stage-2 shape, which no path here runs yet."""
+    bf16, at 524,288 and 131,072 rows (a stage-1 step's coarse and fine
+    calls), 32,768 and a ragged N; two backward launches bit for bit; times
+    at 524,288 and at 1,048,576 (stage 2's rows, which no path here runs
+    through this op)."""
     from havatar_tpu_torch.ops import mlp as M
     from havatar_tpu_torch.ops.mlp import FIN
     gen = torch.Generator().manual_seed(5)
     params = _mlp_params(gen, dev)
-    n_big, n_small = 131072, 32768
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for n in (n_big, n_small, MLP_TAIL_N):
+        for n in MLP_NS:
             where = f"phase 7, {name}, N = {n}"
             x = torch.randn(n, FIN, generator=gen).to(dev).to(dtype)
             g = torch.randn(n, 68, generator=gen).to(dev)
@@ -1210,26 +1234,23 @@ def phase_mlp_kernels(dev) -> None:
             print(f"[7 mlp] {name} N = {n}: forward max abs err {err_f:.3g}; "
                   f"backward max abs err {err_b['max_abs_err']:.3g}, max "
                   f"relative L2 {err_b['max_rel_l2']:.3g}", flush=True)
-            if n == n_big:
-                with torch.no_grad():
-                    again = M.mlp_backward(x, g, *params)
-                torch.cuda.synchronize()
-                diff = max(_max_err(a, b) / max(float(b.abs().max()), 1e-30)
-                           for a, b in zip(again[1], got_b[1]))
-                same_dx = bool(torch.equal(again[0], got_b[0]))
-                print(f"[7 mlp] {name} N = {n}: two backward launches on "
-                      f"the same inputs: parameter gradients differ by at "
-                      f"most {diff:.3g} of a tensor's largest entry (atomic "
-                      f"sums over blocks); dx bit-identical: {same_dx}",
+            if n == MLP_NS[0]:
+                _grads_bit_identical(x, g, params, where)
+                print(f"[7 mlp] {name} N = {n}: two backward launches give "
+                      f"the same dx and parameter gradients bit for bit",
                       flush=True)
-        x = torch.randn(MLP_STAGE2_N, FIN, generator=gen).to(dev).to(dtype)
-        g = torch.randn(MLP_STAGE2_N, 68, generator=gen).to(dev)
-        t = mlp_timings(x, g, params)
-        print(f"[7 mlp] {name} N = {MLP_STAGE2_N} (a stage-2 generator "
-              f"step's rows; timed only): " + json.dumps(
-                  {k: round(v, 4) if isinstance(v, float) else v
-                   for k, v in t.items()}), flush=True)
-        del x, g
+            del x, g, got, got_b
+        for n, what in ((MLP_NS[0], "a stage-1 step's coarse call"),
+                        (MLP_STAGE2_N, "a stage-2 generator step's rows; "
+                                       "timed only")):
+            x = torch.randn(n, FIN, generator=gen).to(dev).to(dtype)
+            g = torch.randn(n, 68, generator=gen).to(dev)
+            t = mlp_timings(x, g, params)
+            print(f"[7 mlp] {name} N = {n} ({what}; bounds on the kernels' "
+                  f"route, {mlp_route(dtype)}, and on FFMA alone): "
+                  + json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                                for k, v in t.items()}), flush=True)
+            del x, g
     torch.cuda.empty_cache()
 
 
@@ -1597,29 +1618,32 @@ QUAD_PLANE = 128                              # the production planes' side
 QUAD_GRAD_NAMES = ("dplane_xy", "dplane_zy", "daux") + MLP_GRAD_NAMES[1:]
 
 
-def quad_bound(planes, rows, aux, params, backward: bool,
-               f32_ops_s: float = F32_OPS_S):
+def quad_route(dtype, backward: bool) -> str:
+    """The chain products' route of the quad kernels for planes in dtype:
+    bf16 on the tensor cores; float32 forward on FFMA (csrc/ffma.cuh),
+    float32 backward on csrc/chain_bwd.cuh's split TF32."""
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "split" if backward else "ffma"
+
+
+def quad_bound(planes, rows, aux, params, backward: bool, route: str = None):
     """Bound of a quad kernel from its call's arguments: the two planes,
     rows, aux, the parameters and the [N, 68] output move once (the
     backward reads as much cotangent and writes daux, the two float32
     plane gradients and the parameter gradients); the chain's products run
-    at the rate of the planes' type (float32 at ``f32_ops_s``: FFMA, the
-    route the kernels take, or split TF32), the corner work (reduce; in the
-    backward also its recompute, the splat and dw) in float32."""
+    at the rates of ``route`` (by default the kernel's own), the corner work
+    (reduce; in the backward also its recompute, the splat and dw) in
+    float32."""
     n = rows.shape[0]
-    fwd, bwd = _mlp_macs()
     nbytes = _nbytes(*planes, rows, aux, *params) + n * 68 * 4
     if backward:
         nbytes += (n * 68 * 4 + _nbytes(aux) + 2 * planes[0].numel() * 4
                    + 4 * sum(p.numel() for p in params))
-    chain = 2.0 * n * (bwd if backward else fwd)
-    corner = 2.0 * n * 8 * C * (3 if backward else 1)
-    if planes[0].dtype == torch.bfloat16:
-        return _bound_ms(nbytes, chain, corner)
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = chain / f32_ops_s + corner / F32_OPS_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    tc, f32, split = chain_ops(
+        n, backward, route or quad_route(planes[0].dtype, backward))
+    f32 += 2.0 * n * 8 * C * (3 if backward else 1)
+    return _bound_ms(nbytes, tc, f32, split)
 
 
 def compare_quad_backward(got, want, dtype, where: str) -> dict:
@@ -1676,6 +1700,7 @@ def _unfused_field(call, g=None):
     plane features ++ posenc, five ``F.linear`` calls; with ``g`` also
     autograd's backward to the planes, points, posenc and parameters."""
     from havatar_tpu_torch.ops.grid_sample import sample_from_triplane
+    from havatar_tpu_torch.scripts.micro_mlp import unfused_chain
     leaves = (call["plane_xy"], call["plane_zy"], call["warped"], call["pe"],
               *call["params"])
     if g is not None:
@@ -1684,7 +1709,7 @@ def _unfused_field(call, g=None):
     feats = sample_from_triplane(warped[None],
                                  torch.stack([pxy, pzy])[:, None])[0]
     x = torch.cat([feats.reshape(feats.shape[0], -1), pe.to(feats.dtype)], -1)
-    out = _unfused_chain(x, params)
+    out = unfused_chain(x, params)
     if g is not None:
         return torch.autograd.grad(out, leaves, g)
     return out
@@ -1732,9 +1757,9 @@ def quad_timings(call, planes, rows, aux) -> dict:
                                                         params, True)
     if planes[0].dtype == torch.float32:
         t["fwd_bound_split_tf32_ms"] = quad_bound(
-            planes, rows, aux, params, False, TF32_SPLIT_OPS_S)[0]
-        t["bwd_bound_split_tf32_ms"] = quad_bound(
-            planes, rows, aux, params, True, TF32_SPLIT_OPS_S)[0]
+            planes, rows, aux, params, False, "split")[0]
+        t["bwd_bound_ffma_ms"] = quad_bound(planes, rows, aux, params, True,
+                                            "ffma")[0]
     return t
 
 
@@ -2130,10 +2155,11 @@ def quad_kernel_rows(captured, main_counts, bf16_counts) -> list:
         common = {"route": "cuda",
                   "source": "havatar_tpu_torch/csrc/quad.cu",
                   "n_rows": rows.shape[0], "library_ms": None}
-        extra = {"fwd": {}, "bwd": {}}
+        extra = {d: {"products": quad_route(dtype, d == "bwd")}
+                 for d in ("fwd", "bwd")}
         if dtype == torch.float32:
-            extra = {d: {"bound_split_tf32_ms": t[f"{d}_bound_split_tf32_ms"]}
-                     for d in ("fwd", "bwd")}
+            extra["fwd"]["bound_split_tf32_ms"] = t["fwd_bound_split_tf32_ms"]
+            extra["bwd"]["bound_ffma_ms"] = t["bwd_bound_ffma_ms"]
         rows_out.append({
             "name": f"mlp_quad_fwd_{name}", **common,
             "replaces": "havatar_tpu/ops/pallas_mlp_quad.py:186",
@@ -2145,6 +2171,7 @@ def quad_kernel_rows(captured, main_counts, bf16_counts) -> list:
         rows_out.append({
             "name": f"mlp_quad_bwd_{name}", **common,
             "replaces": "havatar_tpu/ops/pallas_mlp_quad.py:235",
+            "body": "havatar_tpu_torch/csrc/chain_bwd.cuh",
             "launches": launches["quad_bwd"], **err_b,
             "ms": t["bwd_ms"], "plain_ms": t["bwd_plain_ms"],
             "bound_ms": t["bwd_bound_ms"], "bound_by": t["bwd_bound_by"],
@@ -2181,24 +2208,30 @@ def mlp_kernel_rows(captured, main_counts, bf16_counts) -> list:
             err_b = compare_mlp_backward(
                 got_b, M.fused_mlp_chain_bwd_plain(x, g, *params), dtype,
                 where)
+        _grads_bit_identical(x, g, params, where)
         t = mlp_timings(x, g, params)
-        common = {"route": "cuda",
-                  "source": "havatar_tpu_torch/csrc/mlp.cu",
+        common = {"route": "cuda", "products": mlp_route(dtype),
                   "n_rows": x.shape[0], "library_ms": None}
+        ffma = {d: ({"bound_ffma_ms": t[f"{d}_bound_ffma_ms"]}
+                    if dtype == torch.float32 else {}) for d in ("fwd", "bwd")}
         rows.append({
             "name": f"mlp_fwd_{name}", **common,
+            "source": "havatar_tpu_torch/csrc/mlp.cu",
             "replaces": "havatar_tpu/ops/pallas_mlp.py:99",
             "launches": launches["mlp_fwd"], "max_abs_err": err_f,
             "ms": t["fwd_ms"], "plain_ms": t["fwd_plain_ms"],
             "bound_ms": t["fwd_bound_ms"], "bound_by": t["fwd_bound_by"],
-            "unfused_ms": t["unfused_fwd_ms"]})
+            **ffma["fwd"], "unfused_ms": t["unfused_fwd_ms"]})
         rows.append({
             "name": f"mlp_bwd_{name}", **common,
+            "source": "havatar_tpu_torch/csrc/mlp.cu",
+            "body": "havatar_tpu_torch/csrc/chain_bwd.cuh",
             "replaces": "havatar_tpu/ops/pallas_mlp.py:231",
             "launches": launches["mlp_bwd"], **err_b,
             "ms": t["bwd_ms"], "plain_ms": t["bwd_plain_ms"],
             "bound_ms": t["bwd_bound_ms"], "bound_by": t["bwd_bound_by"],
-            "unfused_ms": t["unfused_fwd_bwd_ms"] - t["unfused_fwd_ms"]})
+            **ffma["bwd"], "unfused_ms": t["unfused_bwd_ms"],
+            "grads_bit_identical": True})
     # the step's fine call has a quarter of the coarse call's rows; a
     # 1024-ray batch (patch_rgb off) would give a quarter of both
     n = captured["x"].shape[0]
@@ -2223,16 +2256,20 @@ FIELD_PTS_SPAN = 5.0           # |p| up to 5: top-frequency angles up to 640
 FIELD_REPLACES = "havatar_tpu/ops/pallas_field.py:108"
 
 
-def field_bound(pts, feat, params):
+def field_bound(pts, feat, params, route: str = None):
     """Bound of a field kernel from its call's arguments: the points, the
     features, the parameters and the [N, 68] float32 output move once; the
-    chain's products run at the rate of the features' type (posenc's 48
-    sines a row are not counted)."""
+    chain's products run at the rates of ``route`` (by default the kernel's
+    own: bf16 tensor cores, or FFMA for float32; posenc's 48 sines a row
+    are not counted)."""
     n = pts.shape[0]
-    ops = 2.0 * n * _mlp_macs()[0]
-    bf16 = feat.dtype == torch.bfloat16
     return _bound_ms(_nbytes(pts, feat, *params) + n * 68 * 4,
-                     ops if bf16 else 0.0, 0.0 if bf16 else ops)
+                     *chain_ops(n, False, route or field_route(feat.dtype)))
+
+
+def field_route(dtype) -> str:
+    """The products' route of the field kernels for features in dtype."""
+    return "bf16" if dtype == torch.bfloat16 else "ffma"
 
 
 def phase_field(dev, golden) -> list:
@@ -2327,8 +2364,12 @@ def phase_field(dev, golden) -> list:
             unfused_ms = _time_ms(lambda: micro_field.unfused_field_eval(
                 pts, feat, *params), 5, 1)
         bound, by = field_bound(pts, feat, params)
+        split = ({"bound_split_tf32_ms": field_bound(pts, feat, params,
+                                                     "split")[0]}
+                 if dtype == f32 else {})
         rows.append({
             "name": f"field_eval_{name}", "route": "cuda",
+            "products": field_route(dtype), **split,
             "source": "havatar_tpu_torch/csrc/mlp.cu",
             "replaces": FIELD_REPLACES, "launches": launches[dtype],
             "n_rows": pts.shape[0], "max_abs_err": errs[dtype],

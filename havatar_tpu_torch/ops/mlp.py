@@ -26,7 +26,15 @@ Weights are ``torch.nn.Linear`` tensors, ``[out, in]``; the JAX kernels hold
   they launch the kernels of ``csrc/mlp.cu`` or raise; they run the plain
   twins only on CPU tensors. ``mlp_forward.launches`` and
   ``mlp_backward.launches`` count launches, ``fused_mlp_chain.launches``
-  both.
+  both. The backward kernel (the body of ``csrc/chain_bwd.cuh``, shared
+  with the quad op) uses no atomics: each of its blocks sums its tiles'
+  weight and bias gradients into its own row of a float32 partial buffer
+  [blocks, N_GRAD], which a second kernel sums in block order, so two
+  launches give the same gradients bit for bit.
+* The wrappers hand the kernels their weights as the tensor cores load
+  them: ``_frags`` (bf16 fragment order) and ``_tf32_frags`` (float32 split
+  into TF32 hi and lo parts, ``tf32_split``, in fragment order), made once
+  a call; ``unflatten_grads`` reads the kernels' flat gradient vector.
 * ``fused_mlp_chain_plain`` (differentiable by autograd) and
   ``fused_mlp_chain_bwd_plain`` (the backward kernel's arithmetic written
   out) are the plain PyTorch twins.
@@ -45,7 +53,11 @@ from havatar_tpu_torch.ops import cuda_build
 
 # widths the CUDA kernels are built for: the production field
 FIN, HID, CF = 176, 128, 64
+# the backward kernels' flat gradient vector: dw0, dw1, dw_feat, dw_alpha,
+# dw_rgb as [in, out], then db0, db1, db_feat, db_alpha, db_rgb
 _GRAD_SIZES = (FIN * HID, HID * HID, HID * CF, HID, CF * 3, HID, HID, CF, 1, 3)
+N_GRAD = sum(_GRAD_SIZES)
+W0_COLS = 24 * 8   # dx's 176 columns padded to 24 8-column blocks, 3 a warp
 
 Params = Tuple[torch.Tensor, ...]   # w0 b0 w1 b1 w_feat b_feat w_alpha b_alpha w_rgb b_rgb
 
@@ -164,7 +176,9 @@ def _lib() -> ctypes.CDLL:
     lib.mlp_forward_f32.restype = I
     lib.mlp_forward_bf16.argtypes = [P] * 10 + [L] + [I] * 3 + [P]
     lib.mlp_forward_bf16.restype = I
-    lib.mlp_backward.argtypes = [P] * 24 + [L] + [I] * 4 + [P]
+    lib.mlp_backward_blocks.argtypes = [L, I, ctypes.POINTER(I)]
+    lib.mlp_backward_blocks.restype = I
+    lib.mlp_backward.argtypes = [P] * 15 + [I, P, L] + [I] * 4 + [P]
     lib.mlp_backward.restype = I
     lib.mlp_error_string.argtypes = [I]
     lib.mlp_error_string.restype = ctypes.c_char_p
@@ -190,12 +204,64 @@ def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
 
 
+def tf32_split(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A float32 tensor as hi + lo: hi keeps TF32's 10 mantissa bits, rounded
+    to nearest with ties away from zero (as the device's ``cvt.rna.tf32.f32``
+    rounds), lo = w - hi, exact (the tensor cores read its top 19 bits).
+    For finite w, hi + lo == w bit for bit."""
+    w = w.detach().float().contiguous()
+    u = w.view(torch.int32)
+    hi = ((u + 0x1000) & -0x2000).view(torch.float32)
+    return hi, w - hi
+
+
+def _tf32_frags(w: torch.Tensor, n_pad: int = 0) -> torch.Tensor:
+    """A product's B operand w [K, N] (K and N + n_pad multiples of 8; N
+    padded with n_pad zero columns), float32, split by ``tf32_split`` and
+    laid out as the split-TF32 ``mma.sync`` m16n8k8 fragments load it:
+    [K/8, N/8, 32, 4], for each 8 x 8 block (k block, n block) and lane 4 g
+    + t the float4 (hi(k = t), hi(t + 4), lo(t), lo(t + 4)) at n = g, so
+    that a warp's load is one coalesced 512-byte read."""
+    w = w.detach().float()
+    if n_pad:
+        w = torch.nn.functional.pad(w, (0, n_pad))
+    K, N = w.shape
+    x = torch.stack(tf32_split(w)).reshape(2, K // 8, 2, 4, N // 8, 8)
+    return x.permute(1, 4, 5, 3, 0, 2).reshape(K // 8, N // 8, 32, 4
+                                                ).contiguous()
+
+
+def _frags(w: torch.Tensor, n_pad: int = 0) -> torch.Tensor:
+    """A product's B operand w [K, N] (K and N + n_pad multiples of 8; N
+    padded with n_pad zero columns), rounded to bf16, in the order in which
+    the bf16 ``mma.sync`` m16n8k8 fragments load it: for each 8 x 8 block
+    (k block, n block) one int32 a lane 4 g + t, holding w(k = 2t) and
+    w(2t + 1) at n = g, so that a warp's load is one coalesced read."""
+    w = w.detach().to(torch.bfloat16)
+    if n_pad:
+        w = torch.nn.functional.pad(w, (0, n_pad))
+    K, N = w.shape
+    x = w.reshape(K // 8, 4, 2, N // 8, 8).permute(0, 3, 4, 1, 2)
+    return x.contiguous().view(torch.int32).reshape(K // 8, N // 8, 32)
+
+
 def _fwd_args_f32(params: Sequence[torch.Tensor]) -> Params:
-    """The float32 forward engine's weights: w0, w1, w_feat as [in, out]
-    copies, then w_alpha, w_rgb and the five biases."""
+    """The FFMA forwards' weights (the quad op's and the field kernel's
+    float32 forwards): w0, w1, w_feat as [in, out] copies, then w_alpha,
+    w_rgb and the five biases."""
     w0, b0, w1, b1, wf, bf, wa, ba, wr, br = params
     return (_kn(w0), _kn(w1), _kn(wf), _f32(wa), _f32(wr), _f32(b0),
             _f32(b1), _f32(bf), _f32(ba), _f32(br))
+
+
+def _fwd_args_split(params: Sequence[torch.Tensor]) -> Params:
+    """The split-TF32 forward's weights (the chain's float32 forward): w0,
+    w1, w_feat as [in, out] in split-TF32 fragment order, then w_alpha,
+    w_rgb and the five biases."""
+    w0, b0, w1, b1, wf, bf, wa, ba, wr, br = params
+    return (_tf32_frags(_kn(w0)), _tf32_frags(_kn(w1)), _tf32_frags(_kn(wf)),
+            _f32(wa), _f32(wr), _f32(b0), _f32(b1), _f32(bf), _f32(ba),
+            _f32(br))
 
 
 def _fwd_args_bf16(params: Sequence[torch.Tensor]) -> Params:
@@ -209,6 +275,33 @@ def _fwd_args_bf16(params: Sequence[torch.Tensor]) -> Params:
     return (bf16(w0), _f32(b0), bf16(w1), _f32(b1),
             bf16(torch.cat([wf, wa], 0)), _f32(torch.cat([bf, ba], 0)),
             bf16(wr), _f32(br))
+
+
+def _bwd_args(params: Sequence[torch.Tensor], bf16: bool) -> Params:
+    """The backward body's weights (csrc/chain_bwd.cuh's Params): for bf16
+    all six products' in bf16 fragment order; for float32 the recompute's
+    W^T [in, out] copies and the transposed chain's W [out, in] in
+    split-TF32 fragment order (w0 padded to W0_COLS); then w_alpha, w_rgb,
+    b0, b1, b_feat, float32."""
+    w0, b0, w1, b1, wf, bf, wa, ba, wr, br = params
+    pad = W0_COLS - w0.shape[1]
+    if bf16:
+        weights = (*(_frags(w.t()) for w in (w0, w1, wf)), _frags(w0, pad),
+                   _frags(w1), _frags(wf))
+    else:
+        weights = (_kn(w0), _kn(w1), _kn(wf), _tf32_frags(w0, pad),
+                   _tf32_frags(w1), _tf32_frags(wf))
+    return (*weights, *(_f32(t) for t in (wa, wr, b0, b1, bf)))
+
+
+def unflatten_grads(flat: torch.Tensor) -> Params:
+    """The backward kernels' flat gradient vector [N_GRAD] (weights as [in,
+    out], then biases) as the ten gradients in the op's order and torch
+    Linear's layouts (views of ``flat``)."""
+    dw0, dw1, dwf, dwa, dwr, db0, db1, dbf, dba, dbr = flat.split(_GRAD_SIZES)
+    return (dw0.view(FIN, HID).t(), db0, dw1.view(HID, HID).t(), db1,
+            dwf.view(HID, CF).t(), dbf, dwa.view(1, HID), dba,
+            dwr.view(CF, 3).t(), dbr)
 
 
 def mlp_forward(x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
@@ -225,7 +318,7 @@ def mlp_forward(x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if x.dtype == torch.float32:
-            args = _fwd_args_f32(params)
+            args = _fwd_args_split(params)
             err = lib.mlp_forward_f32(*_ptrs(x.detach(), *args, out), N, FIN,
                                       HID, CF, stream)
         else:
@@ -245,40 +338,40 @@ def mlp_backward(x: torch.Tensor, g: torch.Tensor, *params: torch.Tensor
                  ) -> Tuple[torch.Tensor, Params]:
     """The chain's backward: x [N, Fin], cotangent g [N, 3 + cf + 1] -> (dx
     in x's dtype, the ten parameter gradients in each parameter's dtype and
-    layout). One launch of the backward kernel for a CUDA x (weight
-    gradients are summed over blocks with float32 atomics, so their last
-    bits differ from run to run); the plain twin for a CPU x."""
+    layout). For a CUDA x one launch of the backward kernel, which sums the
+    weight and bias gradients into a partial buffer [blocks, N_GRAD] (a row
+    a block, zeroed here), and one of the kernel that sums its rows in block
+    order: no atomics, so two launches agree bit for bit. The plain twin for
+    a CPU x."""
     if not x.is_cuda:
         with torch.no_grad():
             return fused_mlp_chain_bwd_plain(x, g, *params)
     _check_shapes(x, params)
     _check_cuda_widths(x, params)
-    w0, b0, w1, b1, wf, bf, wa, ba, wr, br = params
     N = x.shape[0]
     if tuple(g.shape) != (N, 3 + CF + 1) or g.device != x.device:
         raise ValueError(f"g has shape {tuple(g.shape)} on {g.device}, "
                          f"expected {(N, 3 + CF + 1)} on {x.device}")
     g = _f32(g)
+    bf16 = int(x.dtype == torch.bfloat16)
     dx = torch.empty_like(x)
-    flat = torch.zeros(sum(_GRAD_SIZES), dtype=torch.float32, device=x.device)
-    dw0, dw1, dwf, dwa, dwr, db0, db1, dbf, dba, dbr = flat.split(_GRAD_SIZES)
     lib = _lib()
+    nblk = ctypes.c_int(0)
     with torch.cuda.device(x.device):
+        _raise_on(lib, lib.mlp_backward_blocks(N, bf16, ctypes.byref(nblk)),
+                  "mlp_backward")
+        part = torch.zeros(nblk.value, N_GRAD, dtype=torch.float32,
+                           device=x.device)
+        flat = torch.zeros(N_GRAD, dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (_kn(w0), _kn(w1), _kn(wf), _f32(w0), _f32(w1), _f32(wf),
-                _f32(wa), _f32(wr), _f32(b0), _f32(b1), _f32(bf))
         err = lib.mlp_backward(
-            *_ptrs(x.detach(), g, *args, dx, dw0, dw1, dwf, dwa, dwr, db0,
-                   db1, dbf, dba, dbr), N, FIN, HID, CF,
-            int(x.dtype == torch.bfloat16), stream)
+            *_ptrs(x.detach(), g, *_bwd_args(params, bool(bf16)), dx, part),
+            nblk.value, flat.data_ptr(), N, FIN, HID, CF, bf16, stream)
     _raise_on(lib, err, "mlp_backward")
     mlp_backward.launches += 1
     fused_mlp_chain.launches += 1
-    # the kernel holds weight gradients as [in, out]
-    grads = (dw0.view(FIN, HID).t(), db0, dw1.view(HID, HID).t(), db1,
-             dwf.view(HID, CF).t(), dbf, dwa.view(1, HID), dba,
-             dwr.view(CF, 3).t(), dbr)
-    return dx, tuple(d.to(p.dtype) for d, p in zip(grads, params))
+    return dx, tuple(d.to(p.dtype)
+                     for d, p in zip(unflatten_grads(flat), params))
 
 
 mlp_backward.launches = 0

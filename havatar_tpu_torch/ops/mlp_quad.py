@@ -59,7 +59,6 @@ from havatar_tpu_torch.ops.grid_sample import _axis_weights, _unnormalize
 
 # widths the CUDA kernels are built for: the production field
 C_PLANE, N_PE = 64, M.FIN - 2 * 64
-N_GRAD = sum(M._GRAD_SIZES)   # the backward kernel's flat gradient vector
 
 Params = Tuple[torch.Tensor, ...]
 
@@ -285,21 +284,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _frags(w: torch.Tensor, n_pad: int = 0) -> torch.Tensor:
-    """A product's B operand w [K, N] (K and N + n_pad multiples of 8; N
-    padded with n_pad zero columns), rounded to bf16, in the order in which
-    the bf16 backward kernel's ``mma.sync`` m16n8k8 fragments load it: for
-    each 8 x 8 block (k block, n block) one int32 a lane 4 g + t, holding
-    w(k = 2t) and w(2t + 1) at n = g, so that a warp's load is one coalesced
-    read."""
-    w = w.detach().to(torch.bfloat16)
-    if n_pad:
-        w = torch.nn.functional.pad(w, (0, n_pad))
-    K, N = w.shape
-    x = w.reshape(K // 8, 4, 2, N // 8, 8).permute(0, 3, 4, 1, 2)
-    return x.contiguous().view(torch.int32)
-
-
 def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         msg = lib.quad_error_string(err).decode()
@@ -393,8 +377,7 @@ def quad_backward(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
     if tuple(g.shape) != (N, 3 + M.CF + 1) or g.device != dev:
         raise ValueError(f"g has shape {tuple(g.shape)} on {g.device}, "
                          f"expected {(N, 3 + M.CF + 1)} on {dev}")
-    w0, b0, w1, b1, wf, bf, wa, ba, wr, br = _block_order(params, C_PLANE,
-                                                          N_PE)
+    block = _block_order(params, C_PLANE, N_PE)
     g = M._f32(g)
     bf16 = int(plane_xy.dtype == torch.bfloat16)
     lib = _lib()
@@ -406,31 +389,21 @@ def quad_backward(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
         dxy = torch.zeros(H, W, C_PLANE, **f32)
         dzy = torch.zeros(H, W, C_PLANE, **f32)
         daux = torch.empty(N, N_PE + 8, **f32)
-        part = torch.zeros(nblk.value, N_GRAD, **f32)
-        flat = torch.zeros(N_GRAD, **f32)
+        part = torch.zeros(nblk.value, M.N_GRAD, **f32)
+        flat = torch.zeros(M.N_GRAD, **f32)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if bf16:
-            weights = (*(_frags(w.t()) for w in (w0, w1, wf)),
-                       _frags(w0, 24 * 8 - M.FIN), _frags(w1), _frags(wf))
-        else:
-            weights = (M._kn(w0), M._kn(w1), M._kn(wf), M._f32(w0),
-                       M._f32(w1), M._f32(wf))
-        args = (*weights, *(M._f32(t) for t in (wa, wr, b0, b1, bf)))
         err = lib.quad_backward(
             *M._ptrs(plane_xy.detach(), plane_zy.detach()), H, W,
-            *M._ptrs(rows, aux.detach(), g, *args, dxy, dzy, daux, part),
+            *M._ptrs(rows, aux.detach(), g, *M._bwd_args(block, bool(bf16)),
+                     dxy, dzy, daux, part),
             nblk.value, flat.data_ptr(), N, bf16, stream)
     _raise_on(lib, err, "quad_backward")
     quad_backward.launches += 1
     field_radiance_quad.launches += 1
-    dw0, dw1, dwf, dwa, dwr, db0, db1, dbf, dba, dbr = flat.split(
-        M._GRAD_SIZES)
     _, inv = _perm(C_PLANE, N_PE)
-    # the kernel holds weight gradients as [in, out], dw0's rows in block
-    # order
-    grads = (dw0.view(M.FIN, M.HID).t()[:, inv], db0,
-             dw1.view(M.HID, M.HID).t(), db1, dwf.view(M.HID, M.CF).t(), dbf,
-             dwa.view(1, M.HID), dba, dwr.view(M.CF, 3).t(), dbr)
+    grads = M.unflatten_grads(flat)
+    # dw0's columns come in block order
+    grads = (grads[0][:, inv], *grads[1:])
     return (dxy, dzy, daux,
             tuple(d.to(p.dtype) for d, p in zip(grads, params)))
 

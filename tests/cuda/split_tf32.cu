@@ -1,5 +1,5 @@
 // One float32 product C [64][128] = A [64][176] . B [176][128] (the quad
-// chain's first layer at one tile) on four routes, for
+// chain's first layer at one tile) on five routes, for
 // tests/test_torch_split_tf32_cuda.py to hold against float64:
 //   0  FFMA, one thread an output, k in order
 //   1  one TF32 mma.sync m16n8k8 product a k step (hi . hi)
@@ -7,6 +7,8 @@
 //      tf32(v), lo = tf32(v - hi); each k step adds lo.hi + hi.lo, then
 //      hi.hi (the small terms first)
 //   3  split TF32, the small terms in a second accumulator added at the end
+//   4  as 3, with lo = v - hi exact (not rounded to TF32: the tensor cores
+//      read its top 19 bits), as csrc/chain_bwd.cuh splits
 // Plain C entry point, bound with ctypes. Built for sm_90a.
 
 #include <cstdint>
@@ -53,11 +55,13 @@ __global__ void mma_kernel(const float* A, const float* B, float* C,
     uint32_t ah[4], al[4], bh[2], bl[2];
     for (int e = 0; e < 4; ++e) {
       ah[e] = tf32(av[e]);
-      al[e] = tf32(av[e] - __uint_as_float(ah[e]));
+      const float lo = av[e] - __uint_as_float(ah[e]);
+      al[e] = route == 4 ? __float_as_uint(lo) : tf32(lo);
     }
     for (int e = 0; e < 2; ++e) {
       bh[e] = tf32(bv[e]);
-      bl[e] = tf32(bv[e] - __uint_as_float(bh[e]));
+      const float lo = bv[e] - __uint_as_float(bh[e]);
+      bl[e] = route == 4 ? __float_as_uint(lo) : tf32(lo);
     }
     if (route == 1) {
       mma(c, ah, bh);

@@ -215,3 +215,106 @@ def test_cpu_calls_launch_no_kernel():
     M.fused_mlp_chain(x, *params).sum().backward()
     assert before == (M.mlp_forward.launches, M.mlp_backward.launches,
                       M.fused_mlp_chain.launches)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' host-side packing (plain PyTorch, what the CUDA kernels read)
+# ---------------------------------------------------------------------------
+
+def _weight(rng, k, n):
+    """A weight with entries over many binades, ties included."""
+    w = rng.randn(k, n).astype(np.float32) * 10.0 ** rng.uniform(-4, 3, (k, n))
+    w[0, :4] = [1 + 2 ** -11, -(1 + 2 ** -11), (1 + 2 ** -11) * 2 ** -12, 0.0]
+    return torch.from_numpy(w.astype(np.float32))
+
+
+def test_tf32_split_keeps_ten_mantissa_bits_and_restores_the_weight():
+    """hi has TF32's 10-bit mantissa (the low 13 bits are zero), rounded to
+    nearest with ties away from zero as ``cvt.rna.tf32.f32`` rounds, and
+    hi + lo is the weight bit for bit."""
+    w = _weight(np.random.RandomState(20), 176, 128)
+    hi, lo = M.tf32_split(w)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert torch.equal(hi + lo, w)
+    assert (lo.abs() <= hi.abs() * 2.0 ** -11).all()
+    # nearest: no other TF32 value is closer to w than hi
+    step = torch.ldexp(torch.ones_like(w), torch.frexp(hi)[1] - 11)
+    assert ((w - hi).abs() <= step / 2).all()
+    assert hi[0, :4].tolist() == [1 + 2 ** -10, -(1 + 2 ** -10),
+                                  (1 + 2 ** -10) * 2 ** -12, 0.0]
+
+
+@pytest.mark.parametrize("k, n, n_pad", [(176, 128, 0), (128, 176, 16),
+                                         (64, 128, 0), (128, 64, 0)])
+def test_tf32_fragments_unpack_to_the_weight(k, n, n_pad):
+    """_tf32_frags [K/8, N/8, 32, 4] holds, for block (kb, nb) and lane
+    4 g + t, (hi, hi, lo, lo) of w at (k = 8 kb + t, 8 kb + t + 4; n = 8 nb
+    + g): read back element by element, hi + lo is the weight bit for bit
+    and the padded columns are zero."""
+    w = _weight(np.random.RandomState(k + n), k, n)
+    f = M._tf32_frags(w, n_pad)
+    assert f.shape == (k // 8, (n + n_pad) // 8, 32, 4)
+    assert f.dtype == torch.float32 and f.is_contiguous()
+    kb, nb, lane, e = np.meshgrid(np.arange(k // 8), np.arange((n + n_pad) // 8),
+                                  np.arange(32), np.arange(4), indexing="ij")
+    row = 8 * kb + lane % 4 + 4 * (e % 2)
+    col = 8 * nb + lane // 4
+    got = torch.zeros(2, k, n + n_pad)
+    got[torch.from_numpy(e // 2), torch.from_numpy(row),
+        torch.from_numpy(col)] = f
+    hi, lo = M.tf32_split(w)
+    assert torch.equal(got[0, :, :n], hi) and torch.equal(got[1, :, :n], lo)
+    assert torch.equal(got[0, :, :n] + got[1, :, :n], w)
+    assert not got[:, :, n:].any()
+
+
+def test_bf16_fragments_unpack_to_the_weight():
+    """_frags [K/8, N/8, 32] int32 holds, for block (kb, nb) and lane 4 g +
+    t, bf16(w) at (k = 8 kb + 2t, 8 kb + 2t + 1; n = 8 nb + g), the first in
+    the low half: read back, it is bf16(w) bit for bit."""
+    w = _weight(np.random.RandomState(3), 128, 176)
+    f = M._frags(w, 16)
+    assert f.shape == (16, 24, 32) and f.dtype == torch.int32
+    halves = f.view(torch.bfloat16).reshape(16, 24, 32, 2)
+    kb, nb, lane, e = np.meshgrid(np.arange(16), np.arange(24), np.arange(32),
+                                  np.arange(2), indexing="ij")
+    got = torch.zeros(128, 192, dtype=torch.bfloat16)
+    got[torch.from_numpy(8 * kb + 2 * (lane % 4) + e),
+        torch.from_numpy(8 * nb + lane // 4)] = halves
+    assert torch.equal(got[:, :176], w.to(torch.bfloat16))
+    assert not got[:, 176:].float().any()
+
+
+def test_unflatten_grads_reads_the_kernels_layout():
+    """The backward kernels' flat gradient vector: dw0, dw1, dw_feat,
+    dw_alpha, dw_rgb as [in, out], then the five biases, N_GRAD floats;
+    unflatten_grads gives them back in the op's order and Linear's
+    layouts."""
+    rng = np.random.RandomState(21)
+    grads = _port_params(_jax_params(rng))
+    w0, b0, w1, b1, wf, bf, wa, ba, wr, br = grads
+    flat = torch.cat([w0.t().reshape(-1), w1.t().reshape(-1),
+                      wf.t().reshape(-1), wa.t().reshape(-1),
+                      wr.t().reshape(-1), b0, b1, bf, ba, br])
+    assert flat.numel() == M.N_GRAD == 47748
+    for got, want in zip(M.unflatten_grads(flat), grads):
+        assert torch.equal(got, want)
+
+
+def test_backward_weights_in_kernel_order():
+    """_bwd_args: bf16 gives the six products' bf16 fragments (w0 padded to
+    W0_COLS), float32 the recompute's [in, out] copies and the transposed
+    chain's split-TF32 fragments, then w_alpha, w_rgb, b0, b1, b_feat."""
+    params = _port_params(_jax_params(np.random.RandomState(22)))
+    f32 = M._bwd_args(params, False)
+    assert [tuple(t.shape) for t in f32[:6]] == [
+        (FIN, HID), (HID, HID), (HID, CF), (16, 24, 32, 4), (16, 16, 32, 4),
+        (8, 16, 32, 4)]
+    assert torch.equal(f32[3], M._tf32_frags(params[0], M.W0_COLS - FIN))
+    b16 = M._bwd_args(params, True)
+    assert [tuple(t.shape) for t in b16[:6]] == [
+        (22, 16, 32), (16, 16, 32), (16, 8, 32), (16, 24, 32), (16, 16, 32),
+        (8, 16, 32)]
+    for a, b in zip(f32[6:], b16[6:]):
+        assert torch.equal(a, b)
+    assert torch.equal(f32[6], params[6]) and torch.equal(f32[10], params[5])

@@ -1,13 +1,15 @@
 """Split TF32 against FFMA for one float32 product, on the card.
 
-The quad kernels' float32 products run on FFMA (csrc/quad.cu). Split TF32
-(each operand v = hi + lo, hi = tf32(v), lo = tf32(v - hi); three TF32
-``mma.sync`` products hi.hi + hi.lo + lo.hi) was tried for them and dropped
-for its error. This file keeps that product alone, so that the error can be
-re-read: ``tests/cuda/split_tf32.cu`` computes C [64][128] = A [64][176] .
-B [176][128], the first layer's product at one tile, on four routes (FFMA;
-one TF32 product; split TF32 in one accumulator; split TF32 with the small
-terms in a second accumulator), and each is held against float64::
+The float32 chain kernels recompute their hidden layers on FFMA and run
+their other products on split TF32 (csrc/chain_bwd.cuh: each operand v =
+hi + lo, hi = tf32(v), lo = v - hi; three TF32 ``mma.sync`` products hi.hi
++ (hi.lo + lo.hi), the small ones in their own accumulator). This file
+keeps one product alone, so that the error can be re-read:
+``tests/cuda/split_tf32.cu`` computes C [64][128] = A [64][176] . B
+[176][128], the first layer's product at one tile, on five routes (FFMA;
+one TF32 product; split TF32 with lo rounded to TF32, in one accumulator
+and with the small terms in a second accumulator; the kernels' split, lo
+exact, two accumulators), and each is held against float64::
 
     python -m pytest --noconftest tests/test_torch_split_tf32_cuda.py \\
         -m cuda -q -s
@@ -22,8 +24,8 @@ What it shows on an H100: split TF32 with the small terms in their own
 accumulator is about as accurate as FFMA, in one accumulator a few times
 less (each k step's small products are added into the large sum), one TF32
 product far less; and no tensor-core route rounds as FFMA in k order does,
-which is what the quad kernels' recomputed hidden layers need (their ReLU
-masks must be the twin's).
+which is what the kernels' recomputed hidden layers need (their ReLU masks
+must be the twin's).
 """
 
 import ctypes
@@ -39,7 +41,8 @@ from havatar_tpu_torch.ops import cuda_build
 
 SRC = Path(__file__).resolve().parent / "cuda" / "split_tf32.cu"
 M, K, N = 64, 176, 128
-ROUTES = ("ffma", "tf32", "split_tf32_one_acc", "split_tf32_two_acc")
+ROUTES = ("ffma", "tf32", "split_tf32_one_acc", "split_tf32_two_acc",
+          "split_tf32_exact_lo")
 
 
 @pytest.fixture(scope="module")
@@ -94,6 +97,8 @@ def test_split_tf32_product_error(lib):
     two = res["split_tf32_two_acc"]["max_err"]
     assert res["ffma"]["max_err"] < 1e-6
     assert two < 2 * ffma            # split TF32, two accumulators
+    assert res["split_tf32_exact_lo"]["max_err"] < 2 * ffma  # the kernels'
     assert one > two                 # the small terms in the large sum
     assert res["tf32"]["max_err"] > 100 * ffma
     assert all(res[k]["same_as_ffma"] < 4 * M * N for k in ROUTES[1:])
+
