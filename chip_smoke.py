@@ -13,8 +13,13 @@ with a non-zero exit at the first failure:
    port found; build the CUDA kernels from ``havatar_tpu_torch/csrc`` and
    print the build time.
 2. the four march kernels vs their plain twins at the frame's width (16384
-   rays, 16 coarse and 16 fine samples, C = 64) on seeded inputs; the
-   reduced-input pair also against the quad pair on the same points.
+   rays, 16 coarse and 16 fine samples, C = 64) on seeded inputs (the quad
+   pair: two 128^2 x 64 bf16 planes, points a little past the sampling
+   cube, their cells and aux), two quad launches bit for bit; the
+   reduced-input pair also against the quad pair on the same points; then
+   the micro entry point ``havatar_tpu_torch.scripts.micro_march.main``
+   (both kernels gated 16 + 16 and blind 64 + 16, beside the input
+   stage's PyTorch pieces).
 3. the production golden scene (``tests/golden/render_production.npz``):
    all 16384 rays, blind 64+16, through the renderer's three
    configurations (fused on corner rows, fused on the reduced input, exact
@@ -22,9 +27,12 @@ with a non-zero exit at the first failure:
 4. frames: the full-width flagship (two 256^2 -> 128^2 x 64 plane
    generators, gated 16+16 march, StyleUNetSR 128^2 -> 512^2) serves five
    frames with seeded conditions and head poses; the launch counters show
-   both quad kernels ran once a frame; one frame is rendered again with the
-   twins; frames/s and per-stage times from CUDA events; the device's
-   busy time and idle share a frame from a torch.profiler trace.
+   both quad kernels ran once a frame, and the counters of the two
+   corner-row gathers (``grid_sample_2d_quad``, ``gather_rows``) that no
+   [R, S, 8C] tensor was made: the kernels gather from the planes; one
+   frame is rendered again with the twins; frames/s and per-stage times
+   from CUDA events; the device's busy time and idle share a frame from a
+   torch.profiler trace.
 5. the same five frames through a flagship built on the reduced-input
    kernels: their launch counts, its render against phase 4's with the fine
    samples fixed, its frames against phase 4's, its per-stage times.
@@ -55,7 +63,8 @@ with a non-zero exit at the first failure:
    BCE and the loss must fall, and the dense-chain kernels must have run
    twice forward and twice backward a step (plus the validation renders').
    One step through the kernels is held against the same step through the
-   twins on the same draws and fine samples, gradient by gradient. A few
+   twins on the same draws and fine samples, gradient by gradient, with
+   cuDNN's deterministic algorithms (``deterministic_convs``). A few
    steps in bf16 and a few without the fused chain follow for the record;
    then the step's time with and without the fused chain in turns, its
    split by CUDA events and a torch.profiler trace of 5 steps.
@@ -75,7 +84,7 @@ with a non-zero exit at the first failure:
    not falling; a resume for 2 iterations; 3 ``--fast-step`` and 3
    ``--turbo`` (bf16) iterations for the record; one G step through the
    kernels held against the same step through the twins, gradient by
-   gradient; an iteration's time, its split by CUDA events, the peak
+   gradient (deterministic cuDNN, as in phase 8); an iteration's time, its split by CUDA events, the peak
    device memory and a torch.profiler trace; the trained checkpoint
    served for two items through ``havatar_tpu_torch.cli.reenact.main``.
 10. the field kernel (``csrc/mlp.cu``'s ``field_eval_*``: posenc in the
@@ -99,7 +108,12 @@ with a non-zero exit at the first failure:
    or its backward, the corner weights' autograd included) and the PyTorch
    pieces of the composition the kernels replace (``gather_ms``: the corner
    rows' gather; ``regather_splat_ms``: the gather again and the splat of
-   an [N, 8C] gradient with ``index_add_``).
+   an [N, 8C] gradient with ``index_add_``); the quad march rows, on the
+   frame's captured calls, their input stage's time (``stage_ms``:
+   ``field_inputs_cells``), the stage with the kernel (``op_ms``), the
+   corner-rows stage of the old contract (``gather_ms``:
+   ``field_inputs_quad``) and the bound had the kernel read those corner
+   rows (``bound_old_contract_ms``).
 
 The last line is ``{"ok": true, "device": {...}}``. Comparisons run with
 TF32 off for matmuls and cuDNN, so the twins' float32 products are full
@@ -232,7 +246,7 @@ def _bound_ms(nbytes: int, tc_ops: float, f32_ops: float,
 
 def _mlp_ops(n: int, mp, quad: bool = True):
     """(tensor-core ops, f32 ops) of the field MLP on n samples; with
-    ``quad`` including the f32 corner reduction of their 8 quad rows."""
+    ``quad`` including the f32 corner reduction of their 8 corner texels."""
     fin, hid = mp.w0.shape[1], mp.w0.shape[0]
     cf = mp.wr.shape[1]
     c = (fin - N_PE) // 2
@@ -240,29 +254,45 @@ def _mlp_ops(n: int, mp, quad: bool = True):
     return tc, 2.0 * n * 8 * c if quad else 0.0
 
 
-def coarse_bound(args, outs):
+def _input_bytes(xs, old_contract: bool = False) -> int:
+    """Bytes of a march kernel's input stage: the planes, cells and aux of
+    the quad pair (``old_contract``: the [R, S, 8C] bf16 corner rows and aux
+    that the corner-rows contract read instead), or the reduced input."""
+    if len(xs) == 1:
+        return _nbytes(*xs)
+    pxy, pzy, rows, aux = xs
+    if old_contract:
+        R, S, _ = rows.shape
+        return R * S * 8 * pxy.shape[-1] * 2 + _nbytes(aux)
+    return _nbytes(pxy, pzy, rows, aux)
+
+
+def coarse_bound(args, outs, old_contract: bool = False):
     """Bound of either coarse kernel from its own call's arguments:
-    (quads, aux, dists, mp) or (x, dists, mp)."""
+    (plane_xy, plane_zy, rows, aux, dists, mp) or (x, dists, mp)."""
     *xs, dists, mp = args
     R, S = dists.shape
     cf = mp.wr.shape[1]
-    tc, f32 = _mlp_ops(R * S, mp, quad=len(xs) == 2)
+    tc, f32 = _mlp_ops(R * S, mp, quad=len(xs) == 4)
     f32 += R * S * (10 + 2 * (3 + cf))   # alpha, transmittance, weighted sums
-    return _bound_ms(_nbytes(*xs, dists, *mp.tensors(), *outs), tc, f32)
+    return _bound_ms(_input_bytes(xs, old_contract)
+                     + _nbytes(dists, *mp.tensors(), *outs), tc, f32)
 
 
-def fine_bound(args, outs):
-    """Bound of either fine kernel: (q_new, aux_new, keeps, d_concat, ranks,
-    mp[, num_keep]) or (x_new, keeps, d_concat, ranks, mp[, num_keep])."""
+def fine_bound(args, outs, old_contract: bool = False):
+    """Bound of either fine kernel: (plane_xy, plane_zy, rows_new, aux_new,
+    keeps, d_concat, ranks, mp[, num_keep]) or (x_new, keeps, d_concat,
+    ranks, mp[, num_keep])."""
     args = [a for a in args if not isinstance(a, int)]
     *xs, keeps, d_concat, ranks, mp = args
     R, Sa = d_concat.shape
+    Sn = xs[-1].shape[1]
     cf = mp.wr.shape[1]
-    tc, f32 = _mlp_ops(xs[0].shape[0] * xs[0].shape[1], mp,
-                       quad=len(xs) == 2)
-    f32 += R * Sa * (10 + 2 * (3 + cf) + 2 * Sa)  # + rank-compare product
-    return _bound_ms(_nbytes(*xs, keeps, d_concat, ranks, *mp.tensors(),
-                             *outs), tc, f32)
+    tc, f32 = _mlp_ops(R * Sn, mp, quad=len(xs) == 4)
+    f32 += R * Sa * (10 + 2 * (3 + cf) + 2)  # + the product in rank order
+    return _bound_ms(_input_bytes(xs, old_contract)
+                     + _nbytes(keeps, d_concat, ranks, *mp.tensors(), *outs),
+                     tc, f32)
 
 
 def _max_err(a, b) -> float:
@@ -297,6 +327,23 @@ def compare_fine(got, want, where: str) -> dict:
         _check(torch.allclose(g, w, **KERNEL_TOL),
                f"{where}: fine {name} max abs err {errs[name]}")
     return errs
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms inside the block. A whole training
+    step run twice on the same inputs then gives the same gradients bit for
+    bit, so a step through the kernels held against the same step through
+    their twins sees the kernels' differences alone: otherwise the
+    convolutions' backward by itself moves a gradient that sums over every
+    pixel (a StyledConv's scalar noise weight) by as much as the kernels
+    do."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 @contextlib.contextmanager
@@ -372,24 +419,34 @@ def _march_params(gen, dev, alpha_bias: float):
                  for p in (True, False))
 
 
-def _reduce_interleave(quads, aux):
-    """The reduced MLP input of the same points, as ``grid_sample_2d``
-    rounds it (f32 corner sums rounded to bf16), un-permuted to the
-    reference's interleaved channel order."""
+def _reduce_interleave(xs):
+    """The reduced MLP input of the quad pair's points (``xs``: plane_xy,
+    plane_zy, rows, aux), as ``grid_sample_2d`` rounds it (f32 corner sums
+    rounded to bf16), un-permuted to the reference's interleaved channel
+    order."""
     from havatar_tpu_torch.ops import march as M
-    R, S = quads.shape[:2]
+    rows, aux = xs[2:]
+    R, S = rows.shape[:2]
+    quads = M.gather_quads(*xs[:3])
     xb = M._build_x(quads.reshape(R * S, -1), aux.reshape(R * S, -1), C, N_PE)
     planes = torch.stack([xb[:, :C], xb[:, C:2 * C]], -1).flatten(-2)
     return torch.cat([planes, xb[:, 2 * C:]], -1).reshape(R, S, -1).contiguous()
 
 
-def _quad_inputs(gen, dev, R, S):
-    quads = torch.randn(R, S, 8 * C, generator=gen).bfloat16()
-    w = torch.rand(R, S, 8, generator=gen)
-    w = torch.cat([w[..., :4] / w[..., :4].sum(-1, keepdim=True),
-                   w[..., 4:] / w[..., 4:].sum(-1, keepdim=True)], -1)
+def _quad_inputs(gen, dev, R, S, planes=None):
+    """The quad pair's input stage on seeded points: two production-size
+    bf16 planes (``planes`` if given), points over the sampling cube and a
+    little past it, their cells and aux = posenc ++ corner weights."""
+    from havatar_tpu_torch.ops import mlp_quad as Q
+    if planes is None:
+        planes = tuple(torch.randn(1, QUAD_PLANE, QUAD_PLANE, C,
+                                   generator=gen).bfloat16().to(dev)
+                       for _ in range(2))
+    warped = torch.rand(R * S, 3, generator=gen) * 2.1 - 1.05
+    rows, w8 = Q.quad_rows(warped, QUAD_PLANE, QUAD_PLANE)
     pe = torch.sin(torch.randn(R, S, N_PE, generator=gen) * 3)
-    return quads.to(dev), torch.cat([pe, w], -1).to(dev)
+    aux = torch.cat([pe, w8.reshape(R, S, 8)], -1)
+    return (*planes, rows.reshape(R, S, 2).to(dev), aux.to(dev))
 
 
 def _merge_ranks(a, b):
@@ -402,16 +459,17 @@ def _merge_ranks(a, b):
 
 def phase_kernels(dev) -> None:
     from havatar_tpu_torch.ops import march as M
+    from havatar_tpu_torch.scripts import micro_march
     gen = torch.Generator().manual_seed(0)
     R, S, Sn, Sk = R_FRAME, S_COARSE, S_FINE, S_COARSE // 2
     mp, mp_x = _march_params(gen, dev, alpha_bias=1.0)
-    quads, aux = _quad_inputs(gen, dev, R, S)
+    xs = _quad_inputs(gen, dev, R, S)
     # a per-ray scale on the deltas spreads acc = sum(weights) over (0, 1)
     dists = (torch.rand(R, 1, generator=gen) * 0.3
              * (0.5 + torch.rand(R, S, generator=gen))).to(dev)
-    got = M.march_coarse(quads, aux, dists, mp)
+    got = M.march_coarse(*xs, dists, mp)
     torch.cuda.synchronize()
-    want = M.march_coarse_plain(quads, aux, dists, mp)
+    want = M.march_coarse_gather_plain(*xs, dists, mp)
     acc = want[1].sum(-1)
     print(f"[2 kernels] coarse acc min/mean/max {float(acc.min()):.4f} "
           f"{float(acc.mean()):.4f} {float(acc.max()):.4f}")
@@ -424,19 +482,24 @@ def phase_kernels(dev) -> None:
     ranks = _merge_ranks(zk, zn).to(dev)
     d_concat = (torch.rand(R, 1, generator=gen) * 0.3
                 * (0.5 + torch.rand(R, Sk + Sn, generator=gen))).to(dev)
-    q_new, aux_new = _quad_inputs(gen, dev, R, Sn)
-    args = (q_new, aux_new, want[2], d_concat, ranks, mp, Sk)
+    xs_new = _quad_inputs(gen, dev, R, Sn, planes=xs[:2])
+    args = (*xs_new, want[2], d_concat, ranks, mp, Sk)
     got_f = M.march_fine(*args)
     torch.cuda.synchronize()
-    want_f = M.march_fine_plain(*args)
+    want_f = M.march_fine_gather_plain(*args)
     acc = want_f[1].sum(-1)
     print(f"[2 kernels] fine acc min/mean/max {float(acc.min()):.4f} "
           f"{float(acc.mean()):.4f} {float(acc.max()):.4f}")
     errs["march_fine"] = compare_fine(got_f, want_f, "phase 2")
+    # the march has no atomics: a second launch gives the same bits
+    again, again_f = M.march_coarse(*xs, dists, mp), M.march_fine(*args)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip((*got, *got_f),
+                                                 (*again, *again_f))),
+           "phase 2: two launches of the quad kernels differ")
 
     # kernels 3 and 4 on the same points, reduced as grid_sample_2d does
-    x, x_new = _reduce_interleave(quads, aux), _reduce_interleave(q_new,
-                                                                  aux_new)
+    x, x_new = _reduce_interleave(xs), _reduce_interleave(xs_new)
     got_x = M.march_coarse_x(x, dists, mp_x)
     torch.cuda.synchronize()
     errs["march_coarse_x"] = compare_coarse(
@@ -454,6 +517,22 @@ def phase_kernels(dev) -> None:
     for k, e in errs.items():
         print(f"[2 kernels] {k}{'' if ' vs ' in k else ' vs twin'} max abs err "
               + " ".join(f"{n}={v:.3g}" for n, v in e.items()), flush=True)
+    del got, want, got_f, want_f, again, again_f, x, x_new, xs, xs_new
+
+    # the micro entry point: both schedules, beside the input stage
+    res = micro_march.main([])
+    _check(all(math.isfinite(res[k][f"{p}_max_abs_err"])
+               for k in micro_march.SCHEDULES for p in ("coarse", "fine")),
+           f"micro_march: {res}")
+    for k in micro_march.SCHEDULES:
+        r = res[k]
+        print(f"[2 kernels] micro_march {k} {r['samples']}: coarse "
+              f"{r['coarse_ms']:.4f} ms, fine {r['fine_ms']:.4f} ms; input "
+              f"stage (cells) {r['cells_ms']:.4f}, + coarse kernel "
+              f"{r['stage_coarse_ms']:.4f}, + fine kernel "
+              f"{r['stage_fine_ms']:.4f}; the corner-rows stage "
+              f"(field_inputs_quad) {r['field_inputs_quad_ms']:.4f}",
+              flush=True)
 
 
 def phase_golden(dev) -> tuple:
@@ -541,6 +620,8 @@ def _frame_inputs(base: dict, i: int) -> dict:
 def phase_frames(dev):
     from havatar_tpu_torch.infer.reenact import build_flagship
     from havatar_tpu_torch.ops import march as M
+    from havatar_tpu_torch.ops.grid_sample import grid_sample_2d_quad
+    from havatar_tpu_torch.ops.mlp_quad import gather_rows
 
     t0 = time.perf_counter()
     fs = build_flagship(device=dev, seed=0)
@@ -560,6 +641,7 @@ def phase_frames(dev):
 
     # the main path: N_FRAMES requests through the frame function
     M.march_coarse.launches = M.march_fine.launches = 0
+    grid_sample_2d_quad.calls = gather_rows.calls = 0
     frames = []
     for i, x in enumerate(inputs):
         frames.append(fs.frame_fn(**x))
@@ -570,8 +652,13 @@ def phase_frames(dev):
     torch.cuda.synchronize()
     launches = {"march_coarse": M.march_coarse.launches,
                 "march_fine": M.march_fine.launches}
-    print(f"[4 frames] served {N_FRAMES} frames; launches {launches}",
-          flush=True)
+    # the kernels gather the corner texels: no [R, S, 8C] corner rows
+    corner_rows = {"grid_sample_2d_quad": grid_sample_2d_quad.calls,
+                   "gather_rows": gather_rows.calls}
+    _check(not any(corner_rows.values()),
+           f"the frame path built corner rows: {corner_rows}")
+    print(f"[4 frames] served {N_FRAMES} frames; launches {launches}; "
+          f"corner-row gathers {corner_rows}", flush=True)
 
     for i, (img, (render, mask)) in enumerate(zip(frames, renders)):
         _check(tuple(img.shape) == (1, SR_OUT, SR_OUT, 3),
@@ -598,21 +685,33 @@ def phase_frames(dev):
     # one kernel. So (a) is held by PSNR, and the 5e-3 bound holds (b),
     # where the fine samples are the main path's; phase 11 holds the coarse
     # kernel to its twin on this frame's own inputs.
-    captured = {}
+    # The twins' run also keeps the points and planes that the field's
+    # input stage took (phase 11 times it against the corner-rows stage).
+    captured, stages = {}, []
+    field = fs.renderer.model_coarse
 
     def plain_coarse(*a, **kw):
         captured["march_coarse"] = (a, kw)
-        return M.march_coarse_plain(*a, **kw)
+        return M.march_coarse_gather_plain(*a, **kw)
 
     def plain_fine(*a, **kw):
         captured["march_fine"] = (a, kw)
-        return M.march_fine_plain(*a, **kw)
+        return M.march_fine_gather_plain(*a, **kw)
+
+    def cells(pts, planes):
+        stages.append((cells_fn, field.field_inputs_quad, pts, planes))
+        return cells_fn(pts, planes)
+
+    cells_fn = field.field_inputs_cells
 
     render_kernel, mask_kernel = renders[0]
     renders.clear()
+    field.field_inputs_cells = cells
     with marches(plain_coarse, plain_fine):
         img_plain = fs.frame_fn(**inputs[0])
-    with marches(M.march_coarse, M.march_fine_plain):
+    del field.field_inputs_cells
+    captured["stages"] = {"march_coarse": stages[0], "march_fine": stages[1]}
+    with marches(M.march_coarse, M.march_fine_gather_plain):
         img_mixed = fs.frame_fn(**inputs[0])
     del fs.renderer.render_full_image      # the class's method again
     (render_plain, _), (render_mixed, _) = renders
@@ -1352,12 +1451,13 @@ def _one_step_kernels_vs_twins(dev, cfg, data: str) -> dict:
     n0 = M.mlp_forward.launches, M.mlp_backward.launches
     nerf_field.fused_mlp_chain = recording_op
     try:
-        with patched(sample_pdf=recording_pdf):
-            loss_k, grads_k = step()
-        n1 = M.mlp_forward.launches, M.mlp_backward.launches
-        nerf_field.fused_mlp_chain = M.fused_mlp_chain_plain
-        with patched(sample_pdf=lambda *a, **kw: samples[0]):
-            loss_t, grads_t = step()
+        with deterministic_convs():
+            with patched(sample_pdf=recording_pdf):
+                loss_k, grads_k = step()
+            n1 = M.mlp_forward.launches, M.mlp_backward.launches
+            nerf_field.fused_mlp_chain = M.fused_mlp_chain_plain
+            with patched(sample_pdf=lambda *a, **kw: samples[0]):
+                loss_t, grads_t = step()
     finally:
         nerf_field.fused_mlp_chain = real_op
     _check((n1[0] - n0[0], n1[1] - n0[1]) == (2, 2)
@@ -1871,15 +1971,16 @@ def _hd_step_kernels_vs_twins(dev, cfg, data: str, ckpt: str) -> dict:
     n0 = Q.quad_forward.launches, Q.quad_backward.launches
     nerf_field.field_radiance_quad = recording_op
     try:
-        with patched(sample_pdf=recording_pdf):
-            m_k, grads_k = step()
-        n1 = Q.quad_forward.launches, Q.quad_backward.launches
-        Q.quad_forward, Q.quad_backward = (twin_fwd,
-                                           Q.field_radiance_quad_bwd_plain)
-        run[0] = "twins"
-        replay = iter(samples)
-        with patched(sample_pdf=lambda *a, **kw: next(replay)):
-            m_t, grads_t = step()
+        with deterministic_convs():
+            with patched(sample_pdf=recording_pdf):
+                m_k, grads_k = step()
+            n1 = Q.quad_forward.launches, Q.quad_backward.launches
+            Q.quad_forward, Q.quad_backward = (
+                twin_fwd, Q.field_radiance_quad_bwd_plain)
+            run[0] = "twins"
+            replay = iter(samples)
+            with patched(sample_pdf=lambda *a, **kw: next(replay)):
+                m_t, grads_t = step()
     finally:
         nerf_field.field_radiance_quad = real_op
         Q.quad_forward, Q.quad_backward = real_fwd, real_bwd
@@ -2389,10 +2490,11 @@ def phase_kernel_line(captured, launches, serve_launches) -> list:
     from havatar_tpu_torch.ops import march as M
     rows = []
     for name, kernel, plain, compare, bound_fn, replaces in (
-            ("march_coarse", M.march_coarse, M.march_coarse_plain,
+            ("march_coarse", M.march_coarse, M.march_coarse_gather_plain,
              compare_coarse, coarse_bound,
              "havatar_tpu/ops/pallas_march.py:236"),
-            ("march_fine", M.march_fine, M.march_fine_plain, compare_fine,
+            ("march_fine", M.march_fine, M.march_fine_gather_plain,
+             compare_fine,
              fine_bound, "havatar_tpu/ops/pallas_march.py:403"),
             ("march_coarse_x", M.march_coarse_x, M.march_coarse_x_plain,
              compare_coarse, coarse_bound,
@@ -2407,6 +2509,9 @@ def phase_kernel_line(captured, launches, serve_launches) -> list:
             errs = compare(got, plain(*a, **kw), "phase 11")
             ms = _time_ms(lambda: kernel(*a, **kw))
             plain_ms = _time_ms(lambda: plain(*a, **kw), iters=5)
+            stage = (_stage_times(kernel, a, kw, *captured["stages"][name],
+                                  bound_fn(a, got, old_contract=True)[0])
+                     if name in captured["stages"] else {})
         bound, by = bound_fn(a, got)
         rows.append({
             "name": name, "route": "cuda",
@@ -2417,8 +2522,31 @@ def phase_kernel_line(captured, launches, serve_launches) -> list:
             "max_abs_err": max(v for k, v in errs.items() if k != "keeps"),
             "keeps_max_abs_err": errs.get("keeps"),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": None})
+            "bound_by": by, **stage, "library_ms": None})
     return rows
+
+
+def _stage_times(kernel, a, kw, cells_fn, quad_fn, pts, planes,
+                 bound_old: float) -> dict:
+    """A quad kernel's input stage on the frame's own points: its time
+    (``stage_ms``: ``field_inputs_cells``), with the kernel (``op_ms``),
+    and the corner-rows stage the kernel's old contract took instead
+    (``gather_ms``: ``field_inputs_quad``, the [R, S, 8C] gather with the
+    corner weights and posenc); ``bound_old_contract_ms`` is the kernel's
+    bound had it read those corner rows."""
+    R, S = a[2].shape[:2]
+
+    def stage():
+        rows, aux = cells_fn(pts, planes)
+        return rows.reshape(R, S, 2), aux.reshape(R, S, aux.shape[-1])
+
+    _check(all(torch.equal(x, y) for x, y in zip(stage(), a[2:4])),
+           "phase 11: the captured input stage does not give the kernel's "
+           "cells and aux")
+    return {"bound_old_contract_ms": bound_old,
+            "stage_ms": _time_ms(stage),
+            "op_ms": _time_ms(lambda: kernel(*a[:2], *stage(), *a[4:], **kw)),
+            "gather_ms": _time_ms(lambda: quad_fn(pts, planes))}
 
 
 def main() -> int:

@@ -348,7 +348,7 @@ mlp_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ aux,
                    Weights w, float* __restrict__ out, long long N, Layout L) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* sF = reinterpret_cast<const float*>(smem + L.h);
+  const float* F = reinterpret_cast<const float*>(warp_rows(smem, L, warp));
   const float* sSig = reinterpret_cast<const float*>(smem + L.sig);
   const float* sRgb = reinterpret_cast<const float*>(smem + L.rgb);
   const long long ntiles = (N + kPoints - 1) / kPoints;
@@ -363,15 +363,15 @@ mlp_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ aux,
     else
       copy_inputs(smem, L, x, long(pt0), valid, warp, lane);
     __syncwarp();
-    mlp_rows<H, CFT>(smem, L, warp, lane);
+    mlp_warp<H, CFT>(smem, L, warp, lane);
     __syncwarp();
     // a warp's 16 rows are one contiguous span of the output
     const int rows = min(16, valid - warp * 16);
     float* o = out + (pt0 + warp * 16) * (CFT + 4);
     for (int i = lane; i < rows * (CFT + 4); i += 32) {
-      const int pr = warp * 16 + i / (CFT + 4), c = i % (CFT + 4);
+      const int r = i / (CFT + 4), pr = warp * 16 + r, c = i % (CFT + 4);
       o[i] = c < 3 ? sRgb[pr * 3 + c]
-                   : c < 3 + CFT ? sF[pr * L.ldf + c - 3] : sSig[pr];
+                   : c < 3 + CFT ? F[r * L.ldf + c - 3] : sSig[pr];
     }
     __syncwarp();  // the rows are read before the next tile overwrites them
   }
@@ -449,7 +449,7 @@ int mlp_forward_bf16(const void* x, const void* w0, const void* b0,
                      void* stream) {
   if (!widths_ok(fin, hid, cf) || N < 0) return int(cudaErrorInvalidValue);
   if (N == 0) return int(cudaSuccess);
-  const Layout L = make_layout<HID, CF>(fin, 0);
+  const Layout L = make_layout<HID, CF>(fin, kPoints, 0);
   const Weights w{(const bf16*)w0, (const bf16*)w1, (const bf16*)wh,
                   (const bf16*)wr, (const float*)b0, (const float*)b1,
                   (const float*)bh, (const float*)br};
@@ -536,7 +536,8 @@ int field_eval_bf16(const void* pts, const void* feat, const void* w0,
       num_freqs != NFREQ || N < 0)
     return int(cudaErrorInvalidValue);
   if (N == 0) return int(cudaSuccess);
-  const Layout L = make_layout<HID, CF>(FIN, size_t(kPoints) * 3 * 4);
+  const Layout L =
+      make_layout<HID, CF>(FIN, kPoints, size_t(kPoints) * 3 * 4);
   const Weights w{(const bf16*)w0, (const bf16*)w1, (const bf16*)wh,
                   (const bf16*)wr, (const float*)b0, (const float*)b1,
                   (const float*)bh, (const float*)br};

@@ -63,7 +63,8 @@
 //    chunk copies while this one is multiplied, one barrier a chunk. The
 //    tiles (107 KB) let two blocks share an SM.
 //  * bf16 forward: the tensor-core chain of field_mlp.cuh with its gather
-//    input mode (gather_inputs).
+//    input mode (gather_inputs: a warp's cells and aux first, then four
+//    samples' corner texels at a time).
 //  * a ragged N is masked in the kernel: rows past the end read nothing,
 //    write nothing and contribute nothing to any gradient.
 
@@ -304,12 +305,12 @@ quad_bwd_kernel(Planes<T> pl, const int* __restrict__ rows,
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads, 1)
-quad_fwd_mma_kernel(Planes<bf16> pl, const int* __restrict__ rows,
+quad_fwd_mma_kernel(PlanePair pl, const int* __restrict__ rows,
                     const float* __restrict__ aux, Weights w,
                     float* __restrict__ out, long long N, Layout L) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* sF = reinterpret_cast<const float*>(smem + L.h);
+  const float* F = reinterpret_cast<const float*>(warp_rows(smem, L, warp));
   const float* sSig = reinterpret_cast<const float*>(smem + L.sig);
   const float* sRgb = reinterpret_cast<const float*>(smem + L.rgb);
   const long long ntiles = (N + kPoints - 1) / kPoints;
@@ -322,18 +323,18 @@ quad_fwd_mma_kernel(Planes<bf16> pl, const int* __restrict__ rows,
     for (int h = 0; h < kPoints; h += TM)
       prefetch_tile(rows, aux, pt0 + h + kPoints * gridDim.x, N);
     __syncthreads();  // weights staged
-    gather_inputs(smem, L, pl.xy, pl.zy, pl.W, rows, aux, long(pt0), valid,
-                  QC, NPE, warp, lane);
+    gather_inputs(smem, L, pl, rows, aux, long(pt0) + 16 * warp,
+                  max(0, min(16, valid - 16 * warp)), NPE, warp, lane);
     __syncwarp();
-    mlp_rows<HID, CF>(smem, L, warp, lane);
+    mlp_warp<HID, CF>(smem, L, warp, lane);
     __syncwarp();
     // a warp's 16 rows are one contiguous span of the output
     const int n = min(16, valid - warp * 16);
     float* o = out + (pt0 + warp * 16) * NOUT;
     for (int i = lane; i < n * NOUT; i += 32) {
-      const int pr = warp * 16 + i / NOUT, c = i % NOUT;
+      const int r = i / NOUT, pr = warp * 16 + r, c = i % NOUT;
       o[i] = c < 3 ? sRgb[pr * 3 + c]
-                   : c < 3 + CF ? sF[pr * L.ldf + c - 3] : sSig[pr];
+                   : c < 3 + CF ? F[r * L.ldf + c - 3] : sSig[pr];
     }
     __syncwarp();  // the rows are read before the next tile overwrites them
   }
@@ -386,11 +387,15 @@ int quad_forward_bf16(const void* pxy, const void* pzy, int H, int W,
                       const void* br, void* out, long long N, void* stream) {
   if (!shape_ok(H, W, N)) return int(cudaErrorInvalidValue);
   if (N == 0) return int(cudaSuccess);
-  const Layout L = make_layout<HID, CF>(FIN, 0);
+  // the gather stages each warp's corner weights [16][8] f32 at L.extra
+  const Layout L =
+      make_layout<HID, CF>(FIN, kPoints, size_t(kPoints) * 8 * 4);
   const Weights w{(const bf16*)w0, (const bf16*)w1, (const bf16*)wh,
                   (const bf16*)wr, (const float*)b0, (const float*)b1,
                   (const float*)bh, (const float*)br};
-  const Planes<bf16> pl{(const bf16*)pxy, (const bf16*)pzy, W};
+  // one batch item: every row is item 0's
+  const PlanePair pl{(const bf16*)pxy, (const bf16*)pzy, 0, N, W,
+                     (H - 1) * (W - 1) - 1};
   int grid = 0;
   cudaError_t e = launch_config(quad_fwd_mma_kernel, kThreads, L.total,
                                 (N + kPoints - 1) / kPoints, &grid);

@@ -19,8 +19,11 @@ layers:
 * ``field_inputs``: that chain's input alone, [B, N, 2C + posenc] in the
   compute dtype and the reference's interleaved channel order, for the
   reduced-input march kernels (``march_params(dtype, permute=False)``);
-* ``field_inputs_quad``: raw corner rows + posenc + corner weights for the
-  quad march kernels (``march_params(dtype)``).
+* ``field_inputs_cells``: each point's bilinear cell in both planes +
+  posenc + corner weights, for the quad march kernels, which gather the
+  corner texels from the planes themselves (``march_params(dtype)``);
+  ``field_inputs_quad`` gathers those corner rows in PyTorch instead (JAX's
+  quad kernels take them).
 
 State_dict names follow the reference: ``XY_gen``, ``YZ_gen``,
 ``layers_xyz.{0,1}``, ``fc_alpha``, ``fc_rgbFeat``, ``fc_rgb``.
@@ -46,7 +49,7 @@ from havatar_tpu_torch.ops.grid_sample import (
 )
 from havatar_tpu_torch.ops.march import MarchParams, march_params
 from havatar_tpu_torch.ops.mlp import fused_mlp_chain
-from havatar_tpu_torch.ops.mlp_quad import field_radiance_quad
+from havatar_tpu_torch.ops.mlp_quad import field_radiance_quad, quad_rows
 
 
 class DoublePlaneNeRFField(nn.Module):
@@ -144,6 +147,21 @@ class DoublePlaneNeRFField(nn.Module):
         pe = positional_encoding(pts, self.num_encoding_fn_xyz)
         return (torch.cat([rows_xy, rows_zy], -1),
                 torch.cat([pe.float(), w_xy, w_zy], -1))
+
+    def field_inputs_cells(self, pts: torch.Tensor, planes: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B, N, 3] canonical points, planes [2, B, R, R, C] -> (rows
+        [B, N, 2] int32: each point's bilinear cell y0 * (W - 1) + x0 in the
+        XY plane, then in the ZY plane; aux [B, N, posenc + 8] f32, as
+        ``field_inputs_quad``'s). The cells address the same four corner
+        texels as ``field_inputs_quad``'s corner rows, with the same
+        weights (zeros padding)."""
+        B, N, _ = pts.shape
+        H, W = planes.shape[2:4]
+        rows, w8 = quad_rows(self.gridwarper(pts).reshape(-1, 3), H, W)
+        pe = positional_encoding(pts, self.num_encoding_fn_xyz)
+        return (rows.reshape(B, N, 2),
+                torch.cat([pe.float(), w8.reshape(B, N, 8)], -1))
 
     def march_params(self, dtype: torch.dtype,
                      permute: bool = True) -> MarchParams:

@@ -11,9 +11,11 @@ False (default)    (ignored)         the exact path: the field's plain dense
                                      chain and ``volume_render_radiance_field``
                                      in the compute dtype (float32 for the
                                      parity tests). JAX: the XLA path.
-True               True (default)    the fused march on raw corner rows:
-                                     ``march_coarse`` / ``march_fine``. JAX:
-                                     ``use_pallas_march``, ``use_pallas_quad``.
+True               True (default)    the fused march on the planes and each
+                                     sample's cells (the kernels gather the
+                                     corner texels): ``march_coarse`` /
+                                     ``march_fine``. JAX: ``use_pallas_march``,
+                                     ``use_pallas_quad`` (on corner rows).
 True               False             the fused march on the reduced MLP
                                      input: ``march_coarse_x`` /
                                      ``march_fine_x``. JAX: ``use_pallas_march``
@@ -183,15 +185,17 @@ class AvatarRenderer(nn.Module):
     def _march_inputs(self, pts: torch.Tensor, inv_head_T: torch.Tensor,
                       planes: torch.Tensor, skin_vol: torch.Tensor):
         """[B, R, S, 3] world points -> the march kernels' input stage as a
-        tuple: (quads [B*R, S, 8C], aux [B*R, S, posenc+8]) for the quad
-        kernels, (x [B*R, S, 2C+posenc],) for the reduced-input kernels."""
+        tuple: (plane_xy, plane_zy [B, R', R', C], rows [B*R, S, 2], aux
+        [B*R, S, posenc+8]) for the quad kernels, (x [B*R, S, 2C+posenc],)
+        for the reduced-input kernels."""
         b, r, s = pts.shape[:3]
         can = self._canonical(pts, inv_head_T, skin_vol)
         if self.use_quad_march:
-            xs = self.model_coarse.field_inputs_quad(can, planes)
-        else:
-            xs = (self.model_coarse.field_inputs(can, planes),)
-        return tuple(x.reshape(b * r, s, x.shape[-1]) for x in xs)
+            rows, aux = self.model_coarse.field_inputs_cells(can, planes)
+            return (planes[0], planes[1], rows.reshape(b * r, s, 2),
+                    aux.reshape(b * r, s, aux.shape[-1]))
+        x = self.model_coarse.field_inputs(can, planes)
+        return (x.reshape(b * r, s, x.shape[-1]),)
 
     def render_rays(self, planes: torch.Tensor, ray_batch: torch.Tensor,
                     background_prior: torch.Tensor, inv_head_T: torch.Tensor,

@@ -5,7 +5,9 @@ uses:
 
 * ``grid_sample_2d_quad``: the gather half of 2D ``zeros``-padding bilinear
   sampling. It returns each point's four raw corner rows [N, 4C] and its
-  corner weights [N, 4]; the quad march kernels do the corner reduction.
+  corner weights [N, 4] (``nerf_field.field_inputs_quad``, the input of
+  JAX's quad march kernels); ``grid_sample_2d_quad.calls`` counts its
+  calls, so that a run can show that no corner rows were made.
 * ``grid_sample_2d``: the whole sampler, the gather plus an f32 corner
   reduction rounded to the features' dtype; ``sample_from_triplane`` applies
   it to each feature plane.
@@ -57,6 +59,7 @@ def grid_sample_2d_quad(feat: torch.Tensor, coords: torch.Tensor
     Corner order (y0x0, y0x1, y1x0, y1x1); the bilinear value is
     ``einsum('bnkc,bnk->bnc', rows.view(B, N, 4, C).float(), w4)``.
     """
+    grid_sample_2d_quad.calls += 1
     B, H, W, C = feat.shape
     N = coords.shape[1]
     x = _unnormalize(coords[..., 0], W)
@@ -70,6 +73,9 @@ def grid_sample_2d_quad(feat: torch.Tensor, coords: torch.Tensor
     rows = flat[bidx, idx].reshape(B, N, 4 * C)
     w4 = torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], dim=-1)
     return rows, w4.float()
+
+
+grid_sample_2d_quad.calls = 0
 
 
 def grid_sample_2d(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,9 @@ Port of the four kernels of ``havatar_tpu/ops/pallas_march.py``:
 =================  ===========================  ==========================
 wrapper            TPU kernel                   input stage
 =================  ===========================  ==========================
-``march_coarse``   ``fused_march_coarse_quad``  raw corner rows, reduced
-``march_fine``     ``fused_march_fine_quad``    in the kernel
+``march_coarse``   ``fused_march_coarse_quad``  the planes and the cells:
+``march_fine``     ``fused_march_fine_quad``    gather and corner
+                                                reduction in the kernel
 ``march_coarse_x`` ``fused_march_coarse``       the MLP input, already
 ``march_fine_x``   ``fused_march_fine``         reduced
 =================  ===========================  ==========================
@@ -16,27 +17,36 @@ Each has
 * a wrapper that launches its own CUDA kernel of ``csrc/march.cu`` for CUDA
   tensors, counts its launches in ``<wrapper>.launches``, and raises on any
   input the kernel does not take;
-* a plain PyTorch twin (``<wrapper>_plain``) of the same function. The
-  wrapper runs the twin only when it is given CPU tensors; on a CUDA tensor
-  it launches the kernel or raises.
+* a plain PyTorch twin of the same function, on the wrapper's own contract
+  (``march_coarse_gather_plain``, ``march_fine_gather_plain``,
+  ``march_coarse_x_plain``, ``march_fine_x_plain``). The wrapper runs the
+  twin only when it is given CPU tensors; on a CUDA tensor it launches the
+  kernel or raises.
 
-Inputs of the quad pair, per sample: the raw bilinear corner rows of both
-planes, ``quads [R, S, 8C]`` (XY quad row ++ ZY quad row, corner-major), and
-``aux [R, S, n_pe + 8]`` f32 (posenc ++ the 8 corner weights). These kernels
-corner-reduce in f32 and round the MLP input [xy | zy | posenc] ("block"
-order, layer0's columns permuted to match) to the compute dtype (the dtype of
-``quads``). The ``_x`` pair takes that rounded MLP input itself,
-``x [R, S, 2C + n_pe]``, in the reference's "interleaved" order (plane
-feature 2c + p, then posenc) with layer0 as the checkpoint holds it.
-``MarchParams.order`` says which of the two a parameter set is for, and each
-wrapper and twin raises on the other. All four run the 5-layer field MLP with
-compute-dtype inputs and f32 accumulation, and composite with
-alpha = 1 - exp(-relu(sigma) * delta).
+Inputs of the quad pair, per sample: its bilinear cell in each of the two
+feature planes, ``rows [R, S, 2]`` int32 (y0 * (W - 1) + x0, from
+``ops/mlp_quad.py:quad_rows``), and ``aux [R, S, n_pe + 8]`` f32 (posenc ++
+the 8 corner weights), beside the planes ``[B, H, W, C]`` (XY and ZY, one
+pair a batch item; ray r belongs to item r // (R // B)). The kernels gather
+each cell's four corner texels from the planes, corner-reduce them in f32
+and round the MLP input [xy | zy | posenc] ("block" order, layer0's columns
+permuted to match) to the compute dtype (the planes' dtype). Their twins
+gather the corner rows ``quads [R, S, 8C]`` (XY quad row ++ ZY quad row,
+corner-major) with ``gather_rows`` and run ``march_coarse_plain`` /
+``march_fine_plain``, the twins on the TPU kernels' own contract (corner
+rows in), which the CPU tests hold against them. The ``_x`` pair takes the
+rounded MLP input itself, ``x [R, S, 2C + n_pe]``, in the reference's
+"interleaved" order (plane feature 2c + p, then posenc) with layer0 as the
+checkpoint holds it. ``MarchParams.order`` says which of the two a
+parameter set is for, and each wrapper and twin raises on the other. All
+four run the 5-layer field MLP with compute-dtype inputs and f32
+accumulation, and composite with alpha = 1 - exp(-relu(sigma) * delta).
 
 The coarse pass also writes the "keeps": every 2nd sample's radiance packed
 [feat (cf) | rgb (3) | sigma_hi | sigma_lo] in bf16, which the fine pass
 reuses instead of re-evaluating those samples. The fine pass composites
-keeps ++ new samples in CONCAT order with per-ray merge ranks:
+keeps ++ new samples in CONCAT order with per-ray merge ranks (a
+permutation of 0 .. Sa - 1 a ray):
 T_i = prod over j with rank_j < rank_i of (1 - alpha_j + 1e-10).
 """
 
@@ -49,6 +59,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from havatar_tpu_torch.ops import cuda_build
+from havatar_tpu_torch.ops.mlp_quad import gather_rows
 from havatar_tpu_torch.ops.volume_render import cumprod_exclusive
 
 
@@ -207,6 +218,63 @@ def march_fine_plain(q_new: torch.Tensor, aux_new: torch.Tensor,
     return _fine_composite(x, R, Sn, keeps, d_concat, ranks, mp, num_keep)
 
 
+def _items(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
+           rows: torch.Tensor, aux: torch.Tensor) -> Tuple[int, int]:
+    """(B, rays an item) of the quad pair's contract, or ValueError."""
+    if plane_xy.dim() != 4 or plane_zy.shape != plane_xy.shape \
+            or min(plane_xy.shape[1:3]) < 2:
+        raise ValueError(f"expected two planes [B, H, W, C] of one shape, H "
+                         f"and W at least 2, got {tuple(plane_xy.shape)} and "
+                         f"{tuple(plane_zy.shape)}")
+    if rows.dim() != 3 or rows.shape[2] != 2 or aux.dim() != 3 \
+            or aux.shape[:2] != rows.shape[:2] or aux.shape[2] < 8:
+        raise ValueError(f"expected rows [R, S, 2] and aux [R, S, n_pe + 8], "
+                         f"got {tuple(rows.shape)} and {tuple(aux.shape)}")
+    B, R = plane_xy.shape[0], rows.shape[0]
+    if R % B:
+        raise ValueError(f"{R} rays do not split into {B} batch items")
+    return B, R // B
+
+
+def gather_quads(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """The corner rows the quad kernels gather for themselves: planes
+    [B, H, W, C], rows [R, S, 2] -> quads [R, S, 8C] in the planes' dtype
+    (``gather_rows`` on each batch item's planes and rays)."""
+    B = plane_xy.shape[0]
+    R, S, _ = rows.shape
+    Ri = R // B
+    return torch.cat([
+        gather_rows(plane_xy[b], plane_zy[b],
+                    rows[b * Ri:(b + 1) * Ri].reshape(-1, 2))
+        for b in range(B)]).reshape(R, S, -1)
+
+
+def march_coarse_gather_plain(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
+                              rows: torch.Tensor, aux: torch.Tensor,
+                              dists: torch.Tensor, mp: MarchParams
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain twin of the coarse kernel: the corner rows' gather, then
+    ``march_coarse_plain``. Returns as ``march_coarse_plain``."""
+    _items(plane_xy, plane_zy, rows, aux)
+    return march_coarse_plain(gather_quads(plane_xy, plane_zy, rows), aux,
+                              dists, mp)
+
+
+def march_fine_gather_plain(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
+                            rows_new: torch.Tensor, aux_new: torch.Tensor,
+                            keeps: torch.Tensor, d_concat: torch.Tensor,
+                            ranks: torch.Tensor, mp: MarchParams,
+                            num_keep: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the fine kernel: the new samples' corner rows, then
+    ``march_fine_plain``. Returns as ``march_fine_plain``."""
+    _items(plane_xy, plane_zy, rows_new, aux_new)
+    return march_fine_plain(gather_quads(plane_xy, plane_zy, rows_new),
+                            aux_new, keeps, d_concat, ranks, mp, num_keep)
+
+
 def march_fine_x_plain(x_new: torch.Tensor, keeps: torch.Tensor,
                        d_concat: torch.Tensor, ranks: torch.Tensor,
                        mp: MarchParams, num_keep: int
@@ -249,14 +317,16 @@ def _lib() -> ctypes.CDLL:
     """csrc/march.cu, built on first use, with its C signatures declared."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib = cuda_build.load("march")
-    lib.march_coarse.argtypes = [P] * 14 + [I] * 6 + [P]
+    lib.march_coarse.argtypes = [P] * 16 + [I] * 9 + [P]
     lib.march_coarse.restype = I
-    lib.march_fine.argtypes = [P] * 15 + [I] * 7 + [P]
+    lib.march_fine.argtypes = [P] * 17 + [I] * 10 + [P]
     lib.march_fine.restype = I
     lib.march_coarse_x.argtypes = [P] * 13 + [I] * 5 + [P]
     lib.march_coarse_x.restype = I
     lib.march_fine_x.argtypes = [P] * 14 + [I] * 6 + [P]
     lib.march_fine_x.restype = I
+    lib.march_fine_fits.argtypes = [I] * 3
+    lib.march_fine_fits.restype = I
     lib.march_error_string.argtypes = [I]
     lib.march_error_string.restype = ctypes.c_char_p
     return lib
@@ -287,9 +357,25 @@ def _check_x_widths(S: int, fin: int, mp: MarchParams) -> None:
 
 
 def _check_widths(S: int, C: int, n_pe: int, mp: MarchParams) -> None:
-    if C % 2:
-        raise ValueError(f"unsupported march widths: C={C} must be even")
+    """Widths of the quad pair: the gather reads 64 channels a plane (four
+    a lane) and the aux rows in 16-byte chunks, at most 64 floats a row."""
+    if C != 64 or n_pe % 4 or n_pe + 8 > 64:
+        raise ValueError(f"unsupported march widths: the gathering kernels "
+                         f"take C=64 plane channels and n_pe a multiple of 4 "
+                         f"up to 56; got C={C}, n_pe={n_pe}")
     _check_x_widths(S, 2 * C + n_pe, mp)
+
+
+def _check_fine_scratch(lib: ctypes.CDLL, Sn: int, Sk: int,
+                        fin: int) -> None:
+    """The fine compositing keeps its elements (keeps ++ new samples of a
+    warp's rays, or of one ray's warps past 16 samples) in one warp's
+    shared-memory scratch; ``csrc/march.cu:march_fine_fits`` says whether
+    they fit."""
+    if not lib.march_fine_fits(Sn, Sk, fin):
+        raise ValueError(f"the fine kernels' scratch does not hold "
+                         f"num_keep={Sk} + Sn={Sn} elements a ray at MLP "
+                         f"input width {fin}")
 
 
 def _check_params(mp: MarchParams, fin: int, device: torch.device) -> None:
@@ -313,24 +399,38 @@ def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
 
 
-def march_coarse(quads: torch.Tensor, aux: torch.Tensor, dists: torch.Tensor,
+def _planes_rows(plane_xy, plane_zy, rows, aux, dev):
+    """Check the quad pair's input stage; (B, H, W, R, S, C, n_pe)."""
+    B, _ = _items(plane_xy, plane_zy, rows, aux)
+    _, H, W, C = plane_xy.shape
+    R, S, _ = rows.shape
+    n_pe = aux.shape[-1] - 8
+    _expect(plane_xy, "plane_xy", torch.bfloat16, (B, H, W, C), dev)
+    _expect(plane_zy, "plane_zy", torch.bfloat16, (B, H, W, C), dev)
+    _expect(rows, "rows", torch.int32, (R, S, 2), dev)
+    _expect(aux, "aux", torch.float32, (R, S, n_pe + 8), dev)
+    return B, H, W, R, S, C, n_pe
+
+
+def march_coarse(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
+                 rows: torch.Tensor, aux: torch.Tensor, dists: torch.Tensor,
                  mp: MarchParams
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Coarse pass. quads [R, S, 8C] (bf16 on CUDA), aux [R, S, n_pe+8] f32,
-    dists [R, S] f32 (already scaled by |rd|). Returns (rgbmap [R, 3+cf] f32
-    with no background, weights [R, S] f32, keeps [R*S/2, cf+5] bf16)."""
-    if not quads.is_cuda:
-        return march_coarse_plain(quads, aux, dists, mp)
-    R, S, qc = quads.shape
-    C, n_pe = qc // 8, aux.shape[-1] - 8
-    H, cf = mp.w0.shape[0], mp.wr.shape[1]
-    dev = quads.device
+    """Coarse pass. plane_xy, plane_zy [B, H, W, C] (bf16 on CUDA, C = 64),
+    rows [R, S, 2] int32 (each sample's cell in both planes), aux
+    [R, S, n_pe+8] f32, dists [R, S] f32 (already scaled by |rd|). Returns
+    (rgbmap [R, 3+cf] f32 with no background, weights [R, S] f32, keeps
+    [R*S/2, cf+5] bf16)."""
+    if not plane_xy.is_cuda:
+        return march_coarse_gather_plain(plane_xy, plane_zy, rows, aux,
+                                         dists, mp)
+    dev = plane_xy.device
+    B, H, W, R, S, C, n_pe = _planes_rows(plane_xy, plane_zy, rows, aux, dev)
+    hid, cf = mp.w0.shape[0], mp.wr.shape[1]
     _check_order(mp, "block", "march_coarse")
     _check_widths(S, C, n_pe, mp)
     if S % 2:
         raise ValueError(f"the coarse pass keeps every 2nd sample: S={S}")
-    _expect(quads, "quads", torch.bfloat16, (R, S, 8 * C), dev)
-    _expect(aux, "aux", torch.float32, (R, S, n_pe + 8), dev)
     _expect(dists, "dists", torch.float32, (R, S), dev)
     _check_params(mp, 2 * C + n_pe, dev)
     rgbmap = torch.empty(R, 3 + cf, dtype=torch.float32, device=dev)
@@ -341,8 +441,9 @@ def march_coarse(quads: torch.Tensor, aux: torch.Tensor, dists: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.march_coarse(
-            *_ptrs(quads, aux, dists, *mp.tensors(), rgbmap, weights, keeps),
-            R, S, C, n_pe, H, cf, stream)
+            *_ptrs(plane_xy, plane_zy, rows, aux, dists, *mp.tensors(),
+                   rgbmap, weights, keeps),
+            B, H, W, R, S, C, n_pe, hid, cf, stream)
     _raise_on(lib, err, "march_coarse")
     march_coarse.launches += 1
     return rgbmap, weights, keeps
@@ -351,40 +452,44 @@ def march_coarse(quads: torch.Tensor, aux: torch.Tensor, dists: torch.Tensor,
 march_coarse.launches = 0
 
 
-def march_fine(q_new: torch.Tensor, aux_new: torch.Tensor,
+def march_fine(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
+               rows_new: torch.Tensor, aux_new: torch.Tensor,
                keeps: torch.Tensor, d_concat: torch.Tensor,
                ranks: torch.Tensor, mp: MarchParams, num_keep: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fine pass over keeps ++ new samples in concat order. q_new
-    [R, Sn, 8C] (bf16 on CUDA), aux_new [R, Sn, n_pe+8] f32, keeps
-    [R*Sk, cf+5] bf16 from ``march_coarse``, d_concat [R, Sa] f32 (each
-    element's sorted-neighbour delta times |rd|), ranks [R, Sa] int32 (each
-    element's sorted position). Returns (rgbmap [R, 3+cf] f32 with no
-    background, weights [R, Sa] f32 in concat order)."""
-    if not q_new.is_cuda:
-        return march_fine_plain(q_new, aux_new, keeps, d_concat, ranks, mp,
-                                num_keep)
-    R, Sn, qc = q_new.shape
-    C, n_pe, Sk = qc // 8, aux_new.shape[-1] - 8, int(num_keep)
+    """Fine pass over keeps ++ new samples in concat order. The planes as
+    ``march_coarse``; rows_new [R, Sn, 2] int32 and aux_new [R, Sn, n_pe+8]
+    f32 of the new samples; keeps [R*Sk, cf+5] bf16 from ``march_coarse``,
+    d_concat [R, Sa] f32 (each element's sorted-neighbour delta times |rd|),
+    ranks [R, Sa] int32 (each element's sorted position). Returns (rgbmap
+    [R, 3+cf] f32 with no background, weights [R, Sa] f32 in concat
+    order)."""
+    if not plane_xy.is_cuda:
+        return march_fine_gather_plain(plane_xy, plane_zy, rows_new,
+                                       aux_new, keeps, d_concat, ranks, mp,
+                                       num_keep)
+    dev = plane_xy.device
+    B, H, W, R, Sn, C, n_pe = _planes_rows(plane_xy, plane_zy, rows_new,
+                                           aux_new, dev)
+    Sk = int(num_keep)
     Sa = Sk + Sn
-    H, cf = mp.w0.shape[0], mp.wr.shape[1]
-    dev = q_new.device
+    hid, cf = mp.w0.shape[0], mp.wr.shape[1]
     _check_order(mp, "block", "march_fine")
     _check_widths(Sn, C, n_pe, mp)
-    _expect(q_new, "q_new", torch.bfloat16, (R, Sn, 8 * C), dev)
-    _expect(aux_new, "aux_new", torch.float32, (R, Sn, n_pe + 8), dev)
+    lib = _lib()
+    _check_fine_scratch(lib, Sn, Sk, 2 * C + n_pe)
     _expect(keeps, "keeps", torch.bfloat16, (R * Sk, cf + 5), dev)
     _expect(d_concat, "d_concat", torch.float32, (R, Sa), dev)
     _expect(ranks, "ranks", torch.int32, (R, Sa), dev)
     _check_params(mp, 2 * C + n_pe, dev)
     rgbmap = torch.empty(R, 3 + cf, dtype=torch.float32, device=dev)
     weights = torch.empty(R, Sa, dtype=torch.float32, device=dev)
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.march_fine(
-            *_ptrs(q_new, aux_new, keeps, d_concat, ranks, *mp.tensors(),
-                   rgbmap, weights), R, Sn, Sk, C, n_pe, H, cf, stream)
+            *_ptrs(plane_xy, plane_zy, rows_new, aux_new, keeps, d_concat,
+                   ranks, *mp.tensors(), rgbmap, weights),
+            B, H, W, R, Sn, Sk, C, n_pe, hid, cf, stream)
     _raise_on(lib, err, "march_fine")
     march_fine.launches += 1
     return rgbmap, weights
@@ -447,6 +552,8 @@ def march_fine_x(x_new: torch.Tensor, keeps: torch.Tensor,
     dev = x_new.device
     _check_order(mp, "interleaved", "march_fine_x")
     _check_x_widths(Sn, fin, mp)
+    lib = _lib()
+    _check_fine_scratch(lib, Sn, Sk, fin)
     _expect(x_new, "x_new", torch.bfloat16, (R, Sn, fin), dev)
     _expect(keeps, "keeps", torch.bfloat16, (R * Sk, cf + 5), dev)
     _expect(d_concat, "d_concat", torch.float32, (R, Sa), dev)
@@ -454,7 +561,6 @@ def march_fine_x(x_new: torch.Tensor, keeps: torch.Tensor,
     _check_params(mp, fin, dev)
     rgbmap = torch.empty(R, 3 + cf, dtype=torch.float32, device=dev)
     weights = torch.empty(R, Sa, dtype=torch.float32, device=dev)
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.march_fine_x(

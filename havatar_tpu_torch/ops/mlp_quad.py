@@ -139,11 +139,11 @@ def quad_rows(warped: torch.Tensor, H: int, W: int,
               padding_mode: str = "zeros"):
     """warped [N, 3] -> (rows [N, 2] int32: the XY plane's cell at (x, y),
     the ZY plane's at (z, y); w8 [N, 8] float32, differentiable in
-    warped)."""
-    i_xy, w_xy = _corners(warped[:, [0, 1]], H, W, padding_mode)
-    i_zy, w_zy = _corners(warped[:, [2, 1]], H, W, padding_mode)
-    return (torch.stack([i_xy, i_zy], 1).int(),
-            torch.cat([w_xy, w_zy], -1).float())
+    warped). Both planes' cells in one pass over [2N] (x, y) pairs."""
+    N = warped.shape[0]
+    cells, w = _corners(warped[:, [0, 1, 2, 1]].reshape(2 * N, 2), H, W,
+                        padding_mode)
+    return cells.reshape(N, 2).int(), w.reshape(N, 8).float()
 
 
 def _quad_pack(p: torch.Tensor) -> torch.Tensor:
@@ -164,11 +164,16 @@ def _table_rows(rows: torch.Tensor, H: int, W: int) -> torch.Tensor:
 def gather_rows(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
                 rows: torch.Tensor) -> torch.Tensor:
     """-> quads [N, 8C] in the planes' dtype: the XY plane's four corner
-    texels of each point's cell ++ the ZY plane's."""
+    texels of each point's cell ++ the ZY plane's. ``gather_rows.calls``
+    counts its calls (the kernels gather for themselves)."""
+    gather_rows.calls += 1
     H, W, _ = plane_xy.shape
     table = torch.cat([_quad_pack(plane_xy), _quad_pack(plane_zy)], 0)
     return table.index_select(0, _table_rows(rows, H, W)).reshape(
         rows.shape[0], -1)
+
+
+gather_rows.calls = 0
 
 
 def splat_quads(dq: torch.Tensor, rows: torch.Tensor, H: int, W: int,

@@ -13,8 +13,10 @@ activation: atol 1e-3, rtol 1e-2 on rgbmap and weights; the keeps are raw
 MLP outputs in bf16, held to atol 5e-3, rtol 1e-2 (such a flip, or one bf16
 ulp of the stored copy), the sigma (hi, lo) pair by its sum.
 
-``kind`` picks the kernel pair: "quad" is march_coarse / march_fine (raw
-corner rows in), "x" is march_coarse_x / march_fine_x (reduced MLP input in).
+``kind`` picks the kernel pair: "quad" is march_coarse / march_fine (the
+planes and each sample's cells in: the kernels gather the corner texels),
+"x" is march_coarse_x / march_fine_x (reduced MLP input in). The march has
+no atomics, so two launches give the same outputs bit for bit.
 """
 
 import numpy as np
@@ -23,8 +25,9 @@ import torch
 import torch.nn as nn
 
 from havatar_tpu_torch.ops import march as M
+from havatar_tpu_torch.ops.mlp_quad import quad_rows
 
-C, N_PE, CF = 64, 48, 64
+C, N_PE, CF, PLANE = 64, 48, 64, 128
 TOL = dict(atol=1e-3, rtol=1e-2)
 KEEP_TOL = dict(atol=5e-3, rtol=1e-2)
 
@@ -59,11 +62,21 @@ def _params(rng, dev, permute=True):
     return mp(True), mp(False)
 
 
-def _quad_inputs(rng, dev, R, S):
-    quads = torch.from_numpy(rng.randn(R, S, 8 * C).astype(np.float32))
-    aux = np.concatenate([np.sin(rng.randn(R, S, N_PE) * 3),
-                          rng.rand(R, S, 8) / 2], -1).astype(np.float32)
-    return quads.bfloat16().to(dev), torch.from_numpy(aux).to(dev)
+def _planes(rng, dev, B=1, H=PLANE, W=PLANE):
+    """Two seeded bf16 planes [B, H, W, C] (XY, ZY)."""
+    return tuple(torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32))
+                 .bfloat16().to(dev) for _ in range(2))
+
+
+def _cells(rng, dev, R, S, H=PLANE, W=PLANE, span=1.05):
+    """rows [R, S, 2] and aux [R, S, N_PE + 8] of points over the sampling
+    cube and up to ``span`` past it (the zero padding's work)."""
+    warped = torch.from_numpy(
+        ((rng.rand(R * S, 3) * 2 - 1) * span).astype(np.float32))
+    rows, w8 = quad_rows(warped, H, W)
+    pe = torch.from_numpy(np.sin(rng.randn(R, S, N_PE) * 3).astype(np.float32))
+    aux = torch.cat([pe, w8.reshape(R, S, 8)], -1)
+    return rows.reshape(R, S, 2).to(dev), aux.to(dev)
 
 
 def _interleave(x_block):
@@ -72,18 +85,26 @@ def _interleave(x_block):
     return torch.cat([planes.flatten(-2), x_block[..., 2 * C:]], -1)
 
 
-def _inputs(kind, rng, dev, R, S):
+def _reduced(planes, rows, aux):
+    """The reduced MLP input of the same points, interleaved."""
+    R, S, _ = rows.shape
+    q = M.gather_quads(*planes, rows)
+    x = M._build_x(q.reshape(R * S, -1), aux.reshape(R * S, -1), C, N_PE)
+    return _interleave(x).reshape(R, S, -1).contiguous()
+
+
+def _inputs(kind, rng, dev, R, S, planes=None, span=1.05):
     """The input-stage arguments of one kernel pair, as a tuple."""
-    q, a = _quad_inputs(rng, dev, R, S)
+    planes = planes if planes is not None else _planes(rng, dev)
+    rows, aux = _cells(rng, dev, R, S, *planes[0].shape[1:3], span=span)
     if kind == "quad":
-        return q, a
-    x = M._build_x(q.reshape(R * S, -1), a.reshape(R * S, -1), C, N_PE)
-    return (_interleave(x).reshape(R, S, -1).contiguous(),)
+        return (*planes, rows, aux)
+    return (_reduced(planes, rows, aux),)
 
 
 KERNELS = {
-    "quad": (M.march_coarse, M.march_coarse_plain, M.march_fine,
-             M.march_fine_plain),
+    "quad": (M.march_coarse, M.march_coarse_gather_plain, M.march_fine,
+             M.march_fine_gather_plain),
     "x": (M.march_coarse_x, M.march_coarse_x_plain, M.march_fine_x,
           M.march_fine_x_plain),
 }
@@ -139,11 +160,11 @@ def test_cuda_reduced_input_kernels_match_quad_kernels(dev):
     R, S = 1000, 16
     rng = np.random.RandomState(5)
     mp_q, mp_x = _params(rng, dev)
-    q, a = _quad_inputs(rng, dev, R, S)
-    x = _interleave(M._build_x(q.reshape(R * S, -1), a.reshape(R * S, -1),
-                               C, N_PE)).reshape(R, S, -1).contiguous()
+    planes = _planes(rng, dev)
+    rows, a = _cells(rng, dev, R, S)
+    x = _reduced(planes, rows, a)
     d = torch.from_numpy(rng.rand(R, S).astype(np.float32) * .2).to(dev)
-    got_q = M.march_coarse(q, a, d, mp_q)
+    got_q = M.march_coarse(*planes, rows, a, d, mp_q)
     got_x = M.march_coarse_x(x, d, mp_x)
     _close_coarse(got_x, got_q, R, S)
     ranks = torch.from_numpy(np.stack(
@@ -151,8 +172,77 @@ def test_cuda_reduced_input_kernels_match_quad_kernels(dev):
     dc = torch.from_numpy(rng.rand(R, S // 2 + S).astype(np.float32) * .2)
     tail = (got_q[2], dc.to(dev), ranks.to(dev))
     for g, w in zip(M.march_fine_x(x, *tail, mp_x, S // 2),
-                    M.march_fine(q, a, *tail, mp_q, S // 2)):
+                    M.march_fine(*planes, rows, a, *tail, mp_q, S // 2)):
         torch.testing.assert_close(g, w, **TOL)
+
+
+def _both_passes(kind, rng, dev, mp, R, S, Sn, planes=None, span=1.05):
+    """One coarse and one fine call of a pair, and the arguments of each."""
+    coarse, _, fine, _ = KERNELS[kind]
+    xs = _inputs(kind, rng, dev, R, S, planes, span)
+    d = torch.from_numpy(rng.rand(R, S).astype(np.float32) * .2).to(dev)
+    out = coarse(*xs, d, mp)
+    Sk = S // 2
+    ranks = torch.from_numpy(np.stack(
+        [rng.permutation(Sk + Sn) for _ in range(R)]).astype(np.int32))
+    dc = torch.from_numpy(rng.rand(R, Sk + Sn).astype(np.float32) * .2)
+    fine_args = (*_inputs(kind, rng, dev, R, Sn, planes, span), out[2],
+                 dc.to(dev), ranks.to(dev), mp, Sk)
+    return (xs, d, mp), out, fine_args, fine(*fine_args)
+
+
+@pytest.mark.cuda
+def test_cuda_quad_kernels_take_each_items_planes(dev):
+    """B = 2 items with different planes: each ray gathers from its own
+    item's planes (rays r < R / 2 from item 0)."""
+    R, S, Sn = 512, 16, 16
+    rng = np.random.RandomState(6)
+    mp = _params(rng, dev)[0]
+    planes = _planes(rng, dev, B=2)
+    args, got, fine_args, got_f = _both_passes("quad", rng, dev, mp, R, S, Sn,
+                                               planes)
+    torch.cuda.synchronize()
+    _close_coarse(got, M.march_coarse_gather_plain(*args[0], *args[1:]), R, S)
+    for g, w in zip(got_f, M.march_fine_gather_plain(*fine_args)):
+        torch.testing.assert_close(g, w, **TOL)
+    # item 1's rays against a twin that reads item 0's planes for them
+    swapped = tuple(torch.cat([p[:1], p[:1]]) for p in planes)
+    wrong = M.march_coarse_gather_plain(*swapped, *args[0][2:], *args[1:])
+    assert not torch.allclose(got[0][R // 2:], wrong[0][R // 2:], **TOL)
+    torch.testing.assert_close(got[0][:R // 2], wrong[0][:R // 2], **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_quad_kernels_on_points_outside_the_planes(dev):
+    """Points up to 1.5x past the sampling cube: clamped cells whose
+    outside corners weigh zero, as the twin's gather reads them."""
+    R, S, Sn = 777, 16, 16
+    rng = np.random.RandomState(7)
+    mp = _params(rng, dev)[0]
+    args, got, fine_args, got_f = _both_passes("quad", rng, dev, mp, R, S, Sn,
+                                               span=1.5)
+    torch.cuda.synchronize()
+    assert bool((args[0][3][..., N_PE:] == 0).any())
+    _close_coarse(got, M.march_coarse_gather_plain(*args[0], *args[1:]), R, S)
+    for g, w in zip(got_f, M.march_fine_gather_plain(*fine_args)):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["quad", "x"])
+@pytest.mark.parametrize("S", [16, 64])
+def test_cuda_two_launches_are_bit_identical(dev, kind, S):
+    """No atomics and a fixed order in every sum: two launches on the same
+    inputs give the same rgbmap, weights and keeps bit for bit."""
+    R = 1001
+    rng = np.random.RandomState(8)
+    mp = _params(rng, dev)[kind == "x"]
+    coarse, _, fine, _ = KERNELS[kind]
+    args, got, fine_args, got_f = _both_passes(kind, rng, dev, mp, R, S, 16)
+    again, again_f = coarse(*args[0], *args[1:]), fine(*fine_args)
+    torch.cuda.synchronize()
+    for a, b in zip((*got, *got_f), (*again, *again_f)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -31,6 +31,7 @@ from havatar_tpu_torch.models import renderer as TR
 from havatar_tpu_torch.models import skinning as TS
 from havatar_tpu_torch.ops import grid_sample as TGS
 from havatar_tpu_torch.ops import march as M
+from havatar_tpu_torch.ops.mlp_quad import quad_rows
 
 import test_golden_regression as tiny_golden
 import test_production_golden as golden
@@ -147,26 +148,30 @@ def test_reduced_input_twins_match_quad_twins_on_the_same_points():
     assert (mp_q.order, mp_x.order) == ("block", "interleaved")
 
     def inputs(Sx):
-        q = _t(rng.randn(R, Sx, 8 * C))
-        a = _t(np.concatenate([rng.randn(R, Sx, N_PE), rng.rand(R, Sx, 8)],
-                              -1))
+        """The quad pair's input stage (two planes, cells, aux) and the
+        reduced input of the same points."""
+        planes = tuple(_t(rng.randn(1, 9, 9, C)) for _ in range(2))
+        rows, w8 = quad_rows(_t(rng.rand(R * Sx, 3) * 2.1 - 1.05), 9, 9)
+        a = torch.cat([_t(rng.randn(R, Sx, N_PE)), w8.reshape(R, Sx, 8)], -1)
+        rows = rows.reshape(R, Sx, 2)
+        q = M.gather_quads(*planes, rows)
         x = M._build_x(q.reshape(R * Sx, -1), a.reshape(R * Sx, -1), C, N_PE)
-        return q, a, _interleave(x).reshape(R, Sx, FIN)
+        return (*planes, rows, a), _interleave(x).reshape(R, Sx, FIN)
 
-    q, a, x = inputs(S)
+    q, x = inputs(S)
     d = _t(rng.rand(R, S))
-    got_q = M.march_coarse(q, a, d, mp_q)
+    got_q = M.march_coarse(*q, d, mp_q)
     got_x = M.march_coarse_x(x, d, mp_x)
     for g, w in zip(got_x[:2], got_q[:2]):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(got_x[2].float(), got_q[2].float(),
                                atol=5e-3, rtol=1e-2)
-    qn, an, xn = inputs(Sn)
+    qn, xn = inputs(Sn)
     ranks = torch.from_numpy(np.stack(
         [rng.permutation(S // 2 + Sn) for _ in range(R)]).astype(np.int32))
     tail = (got_q[2], _t(rng.rand(R, S // 2 + Sn)), ranks)
     for g, w in zip(M.march_fine_x(xn, *tail, mp_x, S // 2),
-                    M.march_fine(qn, an, *tail, mp_q, S // 2)):
+                    M.march_fine(*qn, *tail, mp_q, S // 2)):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
 
 
@@ -183,7 +188,9 @@ def test_march_params_in_the_wrong_channel_order_raise(kind):
     tail = (keeps, torch.rand(R, 2 + S),
             torch.arange(2 + S, dtype=torch.int32).repeat(R, 1), wrong, 2)
     if kind == "quad":
-        xs = (torch.randn(R, S, 8 * C), torch.randn(R, S, N_PE + 8))
+        xs = (torch.randn(1, 4, 4, C), torch.randn(1, 4, 4, C),
+              torch.zeros(R, S, 2, dtype=torch.int32),
+              torch.randn(R, S, N_PE + 8))
         calls = [lambda: M.march_coarse(*xs, d, wrong),
                  lambda: M.march_fine(*xs, *tail)]
     else:
