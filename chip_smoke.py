@@ -115,6 +115,31 @@ with a non-zero exit at the first failure:
    ``field_inputs_quad``) and the bound had the kernel read those corner
    rows (``bound_old_contract_ms``).
 
+12. preprocessing (run after phase 10, before phase 11's line is
+   printed): a seeded FaceVerse v3.1 dict at the reference's shapes (id
+   150, exp 171 and a 52-expression base, tex 251, 478 MediaPipe
+   keypoints; a closed head of 19,794 vertices whose last two vertex
+   ranges are two eyeballs), a 512^2 MJPG video of 14 frames, precomputed
+   landmarks (the model's projection at a drifting pose, plus noise) and
+   masks, all in a temporary directory; then
+   ``havatar_tpu_torch.cli.fit_video.main`` at its defaults (512^2, 2000
+   iterations on frame 0, 100 on the others, base frame 10). Frame 0's
+   loss must fall tenfold, every frame get its three nonblank renders,
+   the split hold frames 10 to 13 and an item of it load through
+   ``AvatarDataset`` with finite rays; frame 0's front-view rasterization
+   and a 100-iteration fit of frame 11 on the card are held against the
+   same calls on the CPU; it prints the fit's seconds (frame 0, a later
+   frame), the renders', the rasterizer's ms a view (its chunk windows
+   against the dense form JAX takes, which must give the same images, on
+   the head's ring-by-ring face order and on a seeded random one), the
+   fit's launches, device busy time and host time an iteration
+   (torch.profiler) and the CLI's peak device memory above what was live
+   before it. Then the heads: the flagship-width field with
+   ``sh_deg = 2`` forward and backward on 16,384 x 32 points (the first
+   4096 against the CPU), the 512^2 discriminator with ``c_dim = 25`` at
+   batch 2 (batch 1 against the CPU) and 2D ``border`` padding against
+   ``F.grid_sample``.
+
 The last line is ``{"ok": true, "device": {...}}``. Comparisons run with
 TF32 off for matmuls and cuDNN, so the twins' float32 products are full
 float32.
@@ -2482,6 +2507,487 @@ def phase_field(dev, golden) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 12: monocular preprocessing (cli/fit_video.py) and the optional heads
+# ---------------------------------------------------------------------------
+
+FIT_RES, FIT_FRAMES = 512, 14                 # the CLI's default --tar_size
+# a closed head of HEAD_LAT x HEAD_LON rings (about 20k vertices, the
+# reference's FaceVerse mesh size, SURVEY section 4) and two eyeballs
+HEAD_LAT, HEAD_LON, EYE_LAT, EYE_LON = 124, 156, 16, 20
+FIT_LM_NOISE_PX = 0.5
+FIT_LOSS_DROP = 10.0                          # frame 0's loss, first / last
+RASTER_DEPTH_ATOL, RASTER_MASK_SHARE = 1e-4, 1e-3
+FIT_LM_ATOL_PX, FIT_LOSS_RTOL = 0.1, 1e-3
+FIT_PROFILE_ITERS = 20
+SH_DEG, SH_N, SH_CHECK_N = 2, 16384 * 32, 4096
+SH_TOL = dict(atol=1e-4, rtol=1e-3)
+D_POSE_C_DIM = 25
+D_TOL = dict(atol=1e-4, rtol=1e-3)
+D_GRAD_REL = 1e-3                             # per tensor, of its largest entry
+GS_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _uv_sphere(n_lat: int, n_lon: int):
+    """A closed UV sphere of radius 1: [V, 3] float64, [F, 3] int64."""
+    th = np.pi * np.arange(1, n_lat) / n_lat
+    ph = 2 * np.pi * np.arange(n_lon) / n_lon
+    ring = np.stack([np.outer(np.sin(th), np.cos(ph)),
+                     np.repeat(np.cos(th)[:, None], n_lon, 1),
+                     np.outer(np.sin(th), np.sin(ph))], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0, 1, 0]], ring, [[0, -1, 0]]])
+    last = len(verts) - 1
+    k = np.arange(n_lon)
+    r = lambda i, kk: 1 + (i - 1) * n_lon + kk % n_lon  # noqa: E731
+    faces = [np.stack([np.zeros(n_lon, int), r(1, k), r(1, k + 1)], 1),
+             np.stack([np.full(n_lon, last), r(n_lat - 1, k + 1),
+                       r(n_lat - 1, k)], 1)]
+    for i in range(1, n_lat - 1):
+        a, b, c, d = r(i, k), r(i, k + 1), r(i + 1, k), r(i + 1, k + 1)
+        faces += [np.stack([a, c, b], 1), np.stack([b, c, d], 1)]
+    return verts, np.concatenate(faces).astype(np.int64)
+
+
+def faceverse_dict(rng):
+    """A seeded FaceVerse v3.1 dict at the reference's shapes: a closed
+    head mesh of about 20k vertices whose last two vertex ranges are two
+    eyeball spheres (``ver_inds``), smooth PCA bases (id 150, exp 171, tex
+    251) and a 52-expression base, 478 MediaPipe keypoints (brows, chin
+    and bridge where the crop reads them, 468:473 on the right eyeball,
+    473:478 on the left), and ``point_buf`` with each vertex's faces,
+    padded to the widest row by repeating the row's last face. Returns
+    (dict, exBase_52 [3V, 52])."""
+    head, head_f = _uv_sphere(HEAD_LAT, HEAD_LON)
+    eye, eye_f = _uv_sphere(EYE_LAT, EYE_LON)
+    head = head * [0.95, 1.15, 1.0] + [0.0, 0.0, -0.2]
+    l_eye, r_eye = eye * 0.12 + [0.33, 0.2, 0.78], eye * 0.12 + [-0.33, 0.2, 0.78]
+    v0, v1 = len(head), len(head) + len(eye)
+    can = np.concatenate([head, l_eye, r_eye])           # canonical space
+    tri = np.concatenate([head_f, eye_f + v0, eye_f + v1])
+    V = len(can)
+
+    def bases(k, amp):
+        """k smooth deformation fields of the canonical vertices -> [3V, k]."""
+        freq = rng.randn(3, k) * 1.5
+        phase = rng.rand(k) * 2 * np.pi
+        direc = rng.randn(3, k)
+        field = np.sin(can @ freq + phase)[:, None, :] * direc[None]
+        return (field * amp).reshape(3 * V, k)
+
+    def to_raw(v):
+        """Canonical -> the asset's raw units (load_model_dict's inverse:
+        x 0.1, y/z flipped, y + 1)."""
+        v = v.reshape(-1, 3).copy()
+        v[:, 1] -= 1
+        v = v / 0.1
+        v[:, [1, 2]] *= -1
+        return v
+
+    def raw_base(b):
+        b = b.reshape(V, 3, -1) / 0.1
+        b[:, [1, 2]] *= -1
+        return b.reshape(3 * V, -1).astype(np.float32)
+
+    front = np.flatnonzero((np.arange(V) < v0) & (can[:, 2] > 0.2))
+    kp = rng.choice(front, 478, replace=False)
+    for slot, target in ((105, [0.3, 0.5, 0.7]), (334, [-0.3, 0.5, 0.7]),
+                         (152, [0.0, -0.85, 0.45]), (6, [0.0, 0.3, 0.8])):
+        kp[slot] = front[np.argmin(np.linalg.norm(can[front] - target, axis=1))]
+    kp[468:473] = rng.choice(np.arange(v1, V), 5, replace=False)
+    kp[473:478] = rng.choice(np.arange(v0, v1), 5, replace=False)
+
+    adj = [[] for _ in range(V)]
+    for f, (a, b, c) in enumerate(tri):
+        adj[a].append(f), adj[b].append(f), adj[c].append(f)
+    width = max(len(r) for r in adj)
+    point_buf = np.asarray([r + [r[-1]] * (width - len(r)) for r in adj])
+    md = {
+        "meanshape": to_raw(can).reshape(-1).astype(np.float32),
+        "meantex": (rng.rand(3 * V) * 150 + 60).astype(np.float32),
+        "idBase": raw_base(bases(150, 0.02)),
+        "exBase": raw_base(bases(171, 0.01)),
+        "texBase": (bases(251, 2.0)).astype(np.float32),
+        "tri": tri, "point_buf": point_buf.astype(np.int64),
+        "mediapipe_keypoints": kp.astype(np.int64),
+        "ver_inds": np.asarray([v0, v1, V]),
+    }
+    return md, raw_base(bases(52, 0.01))
+
+
+def _gt_coeffs(rng, i: int, exp_dims: int, id_c):
+    """Frame i's pose drifts (0.1 rad and 0.1 units over the video, from
+    0.2 to 0.3 rad off the fit's start); the expression is new each
+    frame."""
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    c = np.zeros((1, FV.ID_DIMS + exp_dims + FV.TEX_DIMS + 38), np.float32)
+    a = FV.ID_DIMS + exp_dims + FV.TEX_DIMS
+    c[0, :FV.ID_DIMS] = id_c
+    c[0, FV.ID_DIMS:FV.ID_DIMS + exp_dims] = np.abs(rng.randn(exp_dims)) * 0.3
+    s = i / FIT_FRAMES
+    c[0, a:a + 3] = [0.2 + 0.1 * s, -0.25 + 0.1 * s, 0.05]
+    c[0, a + 30:a + 33] = [0.1 + 0.05 * s, -0.15 + 0.1 * s, 0.2]
+    c[0, a + 33:a + 37] = rng.randn(4) * 0.05
+    c[0, -1] = 1.0
+    return c
+
+
+def write_fit_inputs(root: str, seed: int = 12) -> dict:
+    """Write the fit's inputs under ``root``: the FaceVerse files, a
+    ``FIT_RES``^2 MJPG video of ``FIT_FRAMES`` frames, each frame's
+    landmarks (the seeded model's projection at a drifting pose, plus
+    noise) and its mask. Returns the paths and the ground truth."""
+    import cv2
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    md, exp52 = faceverse_dict(rng)
+    fv_path, exp52_path = (os.path.join(root, "faceverse_v3_1.npy"),
+                           os.path.join(root, "exBase_52.npy"))
+    np.save(fv_path, md, allow_pickle=True)
+    np.save(exp52_path, exp52)
+    model = FV.load_model_dict(md, exp52, device="cpu")
+    intr = (1315.0, 1315.0, FIT_RES / 2, FIT_RES / 2)
+    id_c = rng.randn(FV.ID_DIMS) * 0.2
+    lms_dir = os.path.join(root, "lms")
+    base = os.path.join(root, "out")
+    mask_dir = os.path.join(base, f"mv_mask{FIT_RES}", "0")
+    os.makedirs(lms_dir)
+    os.makedirs(mask_dir)
+    video = os.path.join(root, "input.avi")
+    vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 25,
+                         (FIT_RES, FIT_RES))
+    _check(vw.isOpened(), "phase 12: OpenCV's MJPG video writer did not open")
+    yy, xx = np.mgrid[:FIT_RES, :FIT_RES]
+    gts = []
+    for i in range(FIT_FRAMES):
+        c = _gt_coeffs(rng, i, model.exp_dims, id_c)
+        lms, _ = FV.forward_landmarks(model, torch.from_numpy(c), *intr)
+        lms = lms[0].numpy() + rng.randn(478, 2) * FIT_LM_NOISE_PX
+        np.save(os.path.join(lms_dir, f"{i}.npy"), lms.astype(np.float32))
+        gts.append(c)
+        cx, cy = lms[:, 0].mean(), lms[:, 1].mean()
+        inside = ((xx - cx) / 150) ** 2 + ((yy - cy) / 190) ** 2 < 1
+        frame = (rng.rand(FIT_RES, FIT_RES, 3) * 40).astype(np.uint8)
+        frame[inside] = (180, 160, 140)
+        vw.write(frame)
+        cv2.imwrite(os.path.join(mask_dir, f"{i}.png"),
+                    inside.astype(np.uint8) * 255)
+    vw.release()
+    _check(os.path.getsize(video) > 0, "phase 12: the video is empty")
+    return dict(fv_path=fv_path, exp52_path=exp52_path, lms_dir=lms_dir,
+                base=base, video=video, gts=gts, model_dict=md, exp52=exp52,
+                intr=intr)
+
+
+def _fit_state(coeffs, exp_dims, dev):
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    from havatar_tpu_torch.preprocess import fitting as FIT
+    parts = FV.split_coeffs(torch.from_numpy(coeffs[None]).to(dev), exp_dims)
+    return FIT.FitState(*(p.clone() for p in parts))
+
+
+def _fit_on(dev, inp, model, frame: int, iters: int, prev_coeffs):
+    """A later frame's fit (``fit_rest``'s settings) from the previous
+    frame's coefficients; returns (projected landmarks [478, 2], losses,
+    host seconds)."""
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    from havatar_tpu_torch.preprocess import fitting as FIT
+    fit = FIT.make_fit_frame(model, inp["intr"], FIT.FitConfig(), iters,
+                             first_frame=False, fit_id=False)
+    state = _fit_state(prev_coeffs, model.exp_dims, dev)
+    gt = torch.from_numpy(np.load(os.path.join(inp["lms_dir"],
+                                               f"{frame}.npy"))).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state2, losses = fit(state, gt, state.rot, state.trans)
+    lms, _ = FV.forward_landmarks(model, FIT.pack(state2), *inp["intr"])
+    lms, losses = lms[0].cpu(), losses.cpu()
+    return lms, losses, time.perf_counter() - t0
+
+
+def _check_splits_and_renders(inp, out) -> None:
+    import cv2
+    from havatar_tpu_torch.data.dataset import AvatarDataset
+    from havatar_tpu_torch.utils.cfgnode import CfgNode
+    _check(out["frames"] == [str(i) for i in range(FIT_FRAMES)],
+           f"phase 12: fitted frames {out['frames']}")
+    drop = out["first_loss"]["0"] / out["last_loss"]["0"]
+    print(f"[12 preprocess] frame 0: loss {out['first_loss']['0']:.6g} -> "
+          f"{out['last_loss']['0']:.6g} ({drop:.1f}x); frame 13: "
+          f"{out['first_loss']['13']:.6g} -> {out['last_loss']['13']:.6g}",
+          flush=True)
+    _check(drop >= FIT_LOSS_DROP,
+           f"phase 12: frame 0's loss fell only {drop:.2f}x")
+    save = os.path.join(inp["base"], "tracking")
+    for f in out["frames"]:
+        for view in ("front", "left", "right"):
+            img = cv2.imread(os.path.join(
+                save, f, f"ortho_{view}_render_256_baseGama.png"))
+            nrm = cv2.imread(os.path.join(
+                save, f, f"ortho_{view}_normal_256_baseGama.png"))
+            _check(img is not None and nrm is not None,
+                   f"phase 12: frame {f} lacks its {view} render")
+            _check((img > 0).any(-1).mean() > 0.05 and (nrm > 0).any(),
+                   f"phase 12: frame {f}'s {view} render is blank")
+    split = json.loads(open(out["split"]).read())
+    fidx = sorted(fr["fidx"] for fr in split["frames"])
+    _check(fidx == list(range(10, FIT_FRAMES)),
+           f"phase 12: the split holds frames {fidx}")
+    cfg = CfgNode({"experiment": {"patch_rgb": False},
+                   "dataset": {"near": -1.6, "far": 1.0, "length": 1.0,
+                               "num_random_rays": 1024,
+                               "cond_render_res": 256}})
+    item = AvatarDataset(out["split"], "train", cfg).load_item(0)
+    _check(item["mv_rays"].shape == (1024, 12)
+           and bool(np.isfinite(item["mv_rays"]).all()),
+           "phase 12: the split's item has no finite rays")
+    print(f"[12 preprocess] split {os.path.basename(out['split'])}: frames "
+          f"{fidx}; an item loads through AvatarDataset "
+          f"(mv_rays {tuple(item['mv_rays'].shape)}, finite)", flush=True)
+
+
+def _check_raster_and_fit(dev, inp, out) -> None:
+    """Frame 0's front-view rasterization and a 100-iteration fit of frame
+    11 (from frame 10's coefficients): on the card against the CPU."""
+    from havatar_tpu_torch.ops.boxwarp import BoxWarp
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    from havatar_tpu_torch.preprocess import pipeline as P
+    from havatar_tpu_torch.preprocess.rasterizer import (
+        DEFAULT_CHUNK, chunk_peak_bytes, rasterize_ortho,
+        render_ortho_condition)
+    save = os.path.join(inp["base"], "tracking")
+    res = []
+    for d in (dev, torch.device("cpu")):
+        model = FV.load_model_dict(inp["model_dict"], inp["exp52"], device=d)
+        c = np.load(os.path.join(save, "0", "coeffs.npy"))
+        id_c, exp_c, tex_c, _, _, _, eye_c, _ = FV.split_coeffs(
+            torch.from_numpy(c[None]).to(d), model.exp_dims)
+        verts = BoxWarp.from_bounds(P.CANONICAL_BOUNDS)(
+            FV.get_vs(model, id_c, exp_c, eye_c)[0])
+        colors = FV.get_color(model, tex_c)[0]
+        rot = P.ortho_view_rotations(d)["front"]
+        img, depth, mask = rasterize_ortho(verts @ rot, model.tri, colors,
+                                           P.ORTHO_K, 256)
+        c10 = np.load(os.path.join(save, "10", "coeffs.npy"))
+        lms, losses, secs = _fit_on(d, inp, model, 11, 100, c10)
+        res.append((depth.cpu(), mask.cpu(), img.cpu(), lms, losses, secs))
+        if len(res) == 1:
+            ms = _time_ms(lambda: render_ortho_condition(
+                verts, model.tri, colors, rot, P.ORTHO_K, 256), iters=5,
+                warmup=1)
+            print(f"[12 preprocess] rasterizer: {ms:.3f} ms a 256^2 view on "
+                  f"the card ({model.tri.shape[0]} faces, {model.num_vertex} "
+                  f"vertices, chunk {DEFAULT_CHUNK}: "
+                  f"{chunk_peak_bytes(256, DEFAULT_CHUNK) / 2 ** 30:.2f} GiB "
+                  f"working set)", flush=True)
+            _time_raster_windows(verts @ rot, model.tri, colors)
+    (dg, mg, ig, lg, sg, tg), (dc, mc, ic, lc, sc, tc) = res
+    both = mg & mc
+    differ = float((mg != mc).float().mean())
+    derr = float((dg[both] - dc[both]).abs().max())
+    print(f"[12 preprocess] frame 0 front view, card vs CPU: {int(mg.sum())} "
+          f"hit pixels, masks differ on {differ:.2e} of pixels, depth max err "
+          f"{derr:.3e}, colour max err "
+          f"{float((ig[both] - ic[both]).abs().max()):.3e}", flush=True)
+    _check(differ <= RASTER_MASK_SHARE and derr <= RASTER_DEPTH_ATOL,
+           "phase 12: the card's rasterization is not the CPU's")
+    lerr = float((lg - lc).abs().max())
+    lrel = abs(float(sg[-1]) - float(sc[-1])) / abs(float(sc[-1]))
+    print(f"[12 preprocess] frame 11's 100-iteration fit, card vs CPU: "
+          f"landmarks max err {lerr:.4f} px, loss {float(sg[-1]):.6g} vs "
+          f"{float(sc[-1]):.6g} (rel {lrel:.2e}); {tg:.2f} s on the card, "
+          f"{tc:.2f} s on the CPU", flush=True)
+    _check(lerr <= FIT_LM_ATOL_PX and lrel <= FIT_LOSS_RTOL,
+           "phase 12: the card's fit is not the CPU's")
+
+
+def _time_raster_windows(verts, tri, colors) -> None:
+    """``rasterize_ortho`` with its chunk windows against the dense form
+    JAX takes (every chunk's window the whole image), on the card: on the
+    head's own face order (built ring by ring, so a chunk is a thin band,
+    the windows' best case) and on the same faces in a seeded random order
+    (a chunk's window near the head's whole box). Both forms must give the
+    same image, depth and hit mask."""
+    from unittest import mock
+    from havatar_tpu_torch.preprocess import pipeline as P
+    from havatar_tpu_torch.preprocess import rasterizer as R
+
+    def dense(x_ndc, y_ndc, faces, chunk, res):
+        return [(0, res - 1, 0, res - 1)] * -(-faces.shape[0] // chunk)
+
+    perm = torch.randperm(tri.shape[0],
+                          generator=torch.Generator().manual_seed(24))
+    line = []
+    shuffled = tri[perm.to(tri.device)]
+    for order, faces in (("ring", tri), ("shuffled", shuffled)):
+        def run():
+            return R.rasterize_ortho(verts, faces, colors, P.ORTHO_K, 256)
+        win = run()
+        ms_win = _time_ms(run, iters=5, warmup=1)
+        with mock.patch.object(R, "_chunk_windows", dense):
+            full = run()
+            ms_dense = _time_ms(run, iters=5, warmup=1)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(win, full))
+        line.append(f"{order} order: windows {ms_win:.3f} ms, dense "
+                    f"{ms_dense:.3f} ms, max diff {err:.3e}")
+        _check(all(torch.equal(a, b) for a, b in zip(win, full)),
+               f"phase 12: the chunk windows change the {order}-order view")
+    print("[12 preprocess] rasterizer a 256^2 view, chunk windows vs dense "
+          "(CUDA events, 5 views): " + "; ".join(line), flush=True)
+
+
+def _profile_fit(dev, inp) -> None:
+    """Launches, device busy time and host time an iteration of a later
+    frame's fit (torch.profiler, ``FIT_PROFILE_ITERS`` iterations)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    model = FV.load_model_dict(inp["model_dict"], inp["exp52"], device=dev)
+    c10 = np.load(os.path.join(inp["base"], "tracking", "10", "coeffs.npy"))
+    _, _, secs = _fit_on(dev, inp, model, 11, FIT_PROFILE_ITERS, c10)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _fit_on(dev, inp, model, 11, FIT_PROFILE_ITERS, c10)
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    n = FIT_PROFILE_ITERS
+    launches = sum(e.count for e in on_dev) / n
+    busy = sum(e.self_device_time_total for e in on_dev) / 1e3 / n
+    host = secs * 1e3 / n
+    print(f"[12 preprocess] fit: {launches:.1f} device launches an iteration, "
+          f"device busy {busy:.4f} ms of {host:.4f} ms an iteration on the "
+          f"host clock (idle share {1 - busy / host:.4f}; torch.profiler, "
+          f"{n} iterations)", flush=True)
+
+
+def _check_heads(dev) -> None:
+    """The field's SH head at the flagship width, the discriminator's pose
+    head at 512^2 and 2D border padding: on the card against the CPU (or
+    F.grid_sample), TF32 off."""
+    import torch.nn.functional as F
+    from havatar_tpu_torch.infer.reenact import seeded_init_
+    from havatar_tpu_torch.models.discriminator import WaveletDiscriminator
+    from havatar_tpu_torch.models.nerf_field import DoublePlaneNeRFField
+    from havatar_tpu_torch.ops.grid_sample import grid_sample_2d
+    gen = torch.Generator().manual_seed(21)
+
+    def grads(m):
+        return {n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                if p.grad is not None}
+
+    field = seeded_init_(DoublePlaneNeRFField(sh_deg=SH_DEG), seed=21)
+    planes = torch.randn(2, 1, 128, 128, 64, generator=gen) * 0.5
+    pts = (torch.rand(1, SH_N, 3, generator=gen) * 3 - 1.5)
+    dirs = F.normalize(torch.randn(1, SH_N, 3, generator=gen), dim=-1)
+    cot = torch.randn(1, SH_N, 3 + 64 + 1, generator=gen)
+    field_d = DoublePlaneNeRFField(sh_deg=SH_DEG).to(dev)
+    field_d.load_state_dict(field.state_dict())
+    out = field_d(pts.to(dev), dirs.to(dev), planes.to(dev))
+    (out * cot.to(dev)).sum().backward()
+    _check(bool(torch.isfinite(out).all()), "phase 12: SH head not finite")
+    field_d.zero_grad()
+    k = SH_CHECK_N
+    got = field_d(pts[:, :k].to(dev), dirs[:, :k].to(dev), planes.to(dev))
+    (got * cot[:, :k].to(dev)).sum().backward()
+    want = field(pts[:, :k], dirs[:, :k], planes)
+    (want * cot[:, :k]).sum().backward()
+    fwd_err = float((got.detach().cpu() - want.detach()).abs().max())
+    _check(torch.allclose(got.detach().cpu(), want.detach(), **SH_TOL),
+           f"phase 12: SH head forward, card vs CPU, max err {fwd_err:.3e}")
+    gw, gg = grads(field), grads(field_d)
+    gerr = max(float((gg[n] - w).abs().max()) for n, w in gw.items())
+    _check(set(gw) == set(gg) and all(
+        torch.allclose(gg[n], w, **SH_TOL) for n, w in gw.items()),
+        f"phase 12: SH head gradients, card vs CPU, max err {gerr:.3e}")
+    print(f"[12 heads] field sh_deg {SH_DEG} (fc_rgb "
+          f"{tuple(field.fc_rgb.weight.shape)}): forward and backward on "
+          f"{SH_N} points on the card; first {k}: forward max err "
+          f"{fwd_err:.3e}, gradients max err {gerr:.3e} against the CPU",
+          flush=True)
+
+    disc = seeded_init_(WaveletDiscriminator(size=512, c_dim=D_POSE_C_DIM),
+                        seed=22)
+    disc_d = WaveletDiscriminator(size=512, c_dim=D_POSE_C_DIM).to(dev)
+    disc_d.load_state_dict(disc.state_dict())
+    img = torch.rand(2, 3, 512, 512, generator=gen) * 2 - 1
+    pose = torch.randn(2, D_POSE_C_DIM, generator=gen)
+    s2 = disc_d(img.to(dev), pose.to(dev))
+    s2.sum().backward()
+    _check(s2.shape == (2, 1) and bool(torch.isfinite(s2).all()),
+           "phase 12: the pose head's batch-2 scores")
+    disc_d.zero_grad()
+    with deterministic_convs():
+        got = disc_d(img[:1].to(dev), pose[:1].to(dev))
+        got.sum().backward()
+    want = disc(img[:1], pose[:1])
+    want.sum().backward()
+    gw, gg = grads(disc), grads(disc_d)
+    worst = max(float((gg[n] - w).abs().max()) / max(float(w.abs().max()),
+                                                     1e-12)
+                for n, w in gw.items())
+    print(f"[12 heads] discriminator 512^2 c_dim {D_POSE_C_DIM}: batch 2 "
+          f"forward and backward on the card; batch 1 score "
+          f"{float(got.detach()):.6g} vs {float(want.detach()):.6g} on the CPU, gradients "
+          f"worst {worst:.3e} of their tensor's largest entry", flush=True)
+    _check(torch.allclose(got.detach().cpu(), want.detach(), **D_TOL)
+           and set(gw) == set(gg) and worst <= D_GRAD_REL,
+           "phase 12: the pose head, card vs CPU")
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    feat = torch.randn(2, 128, 128, 64, generator=g, device=dev)
+    coords = torch.rand(2, 65536, 2, generator=g, device=dev) * 2.6 - 1.3
+    got = grid_sample_2d(feat, coords, "border")
+    want = F.grid_sample(feat.permute(0, 3, 1, 2), coords[:, :, None],
+                         padding_mode="border", align_corners=True
+                         )[..., 0].permute(0, 2, 1)
+    err = float((got - want).abs().max())
+    print(f"[12 heads] grid_sample_2d border against F.grid_sample on the "
+          f"card: max err {err:.3e}", flush=True)
+    _check(torch.allclose(got, want, **GS_TOL),
+           "phase 12: border padding against F.grid_sample")
+
+
+def phase_preprocess(dev) -> None:
+    """Phase 12: the seeded inputs, then ``cli/fit_video.py`` at its
+    defaults on the card; its outputs, the rasterizer and a fit against
+    the CPU; the fit's launches an iteration; then the optional heads."""
+    from havatar_tpu_torch.cli import fit_video
+    with tempfile.TemporaryDirectory(prefix="havatar_fit_") as root:
+        t0 = time.perf_counter()
+        inp = write_fit_inputs(root)
+        md = inp["model_dict"]
+        print(f"[12 preprocess] inputs in {time.perf_counter() - t0:.1f} s: "
+              f"FaceVerse dict V = {len(md['meanshape']) // 3}, F = "
+              f"{len(md['tri'])}, point_buf {md['point_buf'].shape}, "
+              f"ver_inds {md['ver_inds'].tolist()}; a {FIT_RES}^2 MJPG video "
+              f"of {FIT_FRAMES} frames", flush=True)
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fit_video.main([
+            "--video_path", inp["video"], "--base_dir", inp["base"],
+            "--faceverse_path", inp["fv_path"],
+            "--exp52_path", inp["exp52_path"], "--lms_dir", inp["lms_dir"]])
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+        later = [out["fit_s"][f] for f in out["frames"][1:]]
+        renders = list(out["render_s"].values())
+        print(f"[12 preprocess] cli/fit_video.py at its defaults "
+              f"({FIT_RES}^2, 2000 + 100 iterations): {wall:.2f} s; fit "
+              f"frame 0 {out['fit_s']['0']:.3f} s, a later frame "
+              f"{np.median(later):.3f} s (median; {min(later):.3f} to "
+              f"{max(later):.3f}); three renders a frame {np.median(renders):.3f}"
+              f" s (median); peak device memory {peak:.3f} GiB above the "
+              f"{live / 2 ** 30:.3f} GiB live before it", flush=True)
+        _check_splits_and_renders(inp, out)
+        _check_raster_and_fit(dev, inp, out)
+        _profile_fit(dev, inp)
+    _check_heads(dev)
+
+
 def phase_kernel_line(captured, launches, serve_launches) -> list:
     """Each kernel on the inputs the frame gave it: error against its twin,
     its time and the twin's (CUDA events), and its bound. ``launches`` is
@@ -2588,6 +3094,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     field_rows = phase_field(dev, golden_coarse)
     del golden_coarse
+    torch.cuda.empty_cache()
+    phase_preprocess(dev)
     rows = phase_kernel_line({**captured, **captured_x},
                              {**launches, **launches_x}, serve_launches)
     rows += mlp_kernel_rows(train_captured, train_counts, bf16_counts)

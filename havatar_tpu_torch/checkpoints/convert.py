@@ -150,7 +150,8 @@ def _two_head_generator(tree: Mapping, prefix: str) -> StateDict:
 def _discriminator(tree: Mapping) -> StateDict:
     """WaveletDiscriminator params -> state_dict entries: ``from_rgb{i}``
     and the last ``from_rgb_final`` become ``from_rgbs.{i}``, ``conv{i}``
-    (ConvBlocks) ``convs.{i}``, ``final_linear{i}`` ``final_linear.{i}``."""
+    (ConvBlocks) ``convs.{i}``, ``final_linear{i}`` ``final_linear.{i}``,
+    the pose head's ``mapping{i}`` ``mapping.{i}``."""
     n_blocks = sum(1 for k in tree if re.fullmatch(r"conv\d+", k))
     sd: StateDict = {}
     for key, sub in tree.items():
@@ -166,8 +167,8 @@ def _discriminator(tree: Mapping) -> StateDict:
                                       downsample=down))
         elif key == "final_conv":
             sd.update(_conv_layer(sub, "final_conv", downsample=False))
-        elif kind == "final_linear" and n:
-            sd.update(_linear(sub, f"final_linear.{n}"))
+        elif kind in ("final_linear", "mapping") and n:
+            sd.update(_linear(sub, f"{kind}.{n}"))
         else:
             raise KeyError(f"no port counterpart for discriminator key "
                            f"{key!r}")

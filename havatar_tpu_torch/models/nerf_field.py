@@ -8,14 +8,19 @@ PlaneGenerator over all three, planes split on channels; 'two_head': a
 TwoHeadPlaneGenerator), the three ways a renderer feeds the five dense
 layers:
 
-* ``forward``: plane features ++ posenc through the dense chain (sh_deg =
-  0), the exact renderer's field evaluation: five ``F.linear`` calls, or
+* ``forward``: plane features ++ posenc through the dense chain, the exact
+  renderer's field evaluation: five ``F.linear`` calls, or
   with ``use_fused_mlp`` the fused op ``ops/mlp.py:fused_mlp_chain``, whose
   forward and backward are one CUDA kernel each (JAX: ``use_pallas_mlp``),
   or with ``use_fused_quad`` (which takes precedence) the op
   ``ops/mlp_quad.py:field_radiance_quad`` on each batch item, whose kernels
   also take in the gather of the corner texels, the corner reduction and
-  the splat of the plane gradients (JAX: ``use_pallas_mlp_quad``);
+  the splat of the plane gradients (JAX: ``use_pallas_mlp_quad``). The
+  fused ops compute the ``sh_deg = 0`` head only, so with ``sh_deg > 0``
+  (``fc_rgb`` 3 (sh_deg + 1)^2 wide, rgb the SH at the view directions,
+  ``ops/sh.py:eval_sh``) ``forward`` takes the five ``F.linear`` calls
+  whatever the flags say, as JAX does; the renderer builds its field with
+  ``sh_deg = 0``, as JAX's does;
 * ``field_inputs``: that chain's input alone, [B, N, 2C + posenc] in the
   compute dtype and the reference's interleaved channel order, for the
   reduced-input march kernels (``march_params(dtype, permute=False)``);
@@ -50,6 +55,7 @@ from havatar_tpu_torch.ops.grid_sample import (
 from havatar_tpu_torch.ops.march import MarchParams, march_params
 from havatar_tpu_torch.ops.mlp import fused_mlp_chain
 from havatar_tpu_torch.ops.mlp_quad import field_radiance_quad, quad_rows
+from havatar_tpu_torch.ops.sh import eval_sh
 
 
 class DoublePlaneNeRFField(nn.Module):
@@ -58,7 +64,7 @@ class DoublePlaneNeRFField(nn.Module):
                  plane_feat_dim: int = 64, plane_res: int = 128,
                  cond_res: int = 256, plane_middle_size: int = 16,
                  enc_mode: str = "split", hidden: int = 128,
-                 feat_dim: int = 64,
+                 feat_dim: int = 64, sh_deg: int = 0,
                  compute_dtype: torch.dtype = torch.float32,
                  use_fused_mlp: bool = False, use_fused_quad: bool = False,
                  sorted_scatter: bool = False):
@@ -70,6 +76,7 @@ class DoublePlaneNeRFField(nn.Module):
         self.num_encoding_fn_xyz = num_encoding_fn_xyz
         self.plane_feat_dim = plane_feat_dim
         self.enc_mode = enc_mode
+        self.sh_deg = sh_deg
         self.compute_dtype = compute_dtype
         gen = dict(out_size=plane_res, style_dim=latent_code_dim,
                    inp_size=cond_res, n_mlp=4, compute_dtype=compute_dtype)
@@ -95,7 +102,7 @@ class DoublePlaneNeRFField(nn.Module):
             [nn.Linear(fin, hidden), nn.Linear(hidden, hidden)])
         self.fc_alpha = nn.Linear(hidden, 1)
         self.fc_rgbFeat = nn.Linear(hidden, feat_dim)
-        self.fc_rgb = nn.Linear(feat_dim, 3)
+        self.fc_rgb = nn.Linear(feat_dim, 3 * (sh_deg + 1) ** 2)
 
     def generate_planes(self, latents: torch.Tensor, cond_c: torch.Tensor,
                         front_cond: torch.Tensor, left_cond: torch.Tensor,
@@ -185,14 +192,14 @@ class DoublePlaneNeRFField(nn.Module):
     def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
                 planes: torch.Tensor) -> torch.Tensor:
         """[B, N, 3] canonical points -> radiance [B, N, 3 + feat + 1] f32
-        (rgb, features, sigma). ``viewdirs`` is unused (sh_deg = 0). The
-        dense layers run in the compute dtype."""
+        (rgb, features, sigma). ``viewdirs`` [B, N, 3] (unit) is read only
+        with ``sh_deg > 0``. The dense layers run in the compute dtype."""
         cdt = self.compute_dtype
 
         def dense(lin, x):
             return F.linear(x, lin.weight.to(cdt), lin.bias.to(cdt))
 
-        if self.use_fused_quad:
+        if self.use_fused_quad and self.sh_deg == 0:
             # one op call a batch item, on that item's planes
             warped = self.gridwarper(pts)
             pe = positional_encoding(pts, self.num_encoding_fn_xyz).float()
@@ -201,7 +208,7 @@ class DoublePlaneNeRFField(nn.Module):
                 *self.dense_params(), sorted_scatter=self.sorted_scatter)
                 for b in range(pts.shape[0])])
         x = self.field_inputs(pts, planes)
-        if self.use_fused_mlp:
+        if self.use_fused_mlp and self.sh_deg == 0:
             B, N, fin = x.shape
             out = fused_mlp_chain(x.reshape(B * N, fin), *self.dense_params())
             return out.reshape(B, N, -1)
@@ -210,4 +217,8 @@ class DoublePlaneNeRFField(nn.Module):
         alpha = dense(self.fc_alpha, x).float()
         feat = dense(self.fc_rgbFeat, x)
         rgb = dense(self.fc_rgb, feat).float()
+        if self.sh_deg > 0:
+            rgb = eval_sh(self.sh_deg,
+                          rgb.reshape(*rgb.shape[:-1], -1,
+                                      (self.sh_deg + 1) ** 2), viewdirs)
         return torch.cat([rgb, feat.float(), alpha], -1)

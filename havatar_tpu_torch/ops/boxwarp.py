@@ -1,6 +1,7 @@
 """Uniform box warp: world AABB -> the [-1, 1]^3 sampling cube.
 
-Port of ``havatar_tpu/ops/boxwarp.py`` (``get_box_warp_param``, ``BoxWarp``).
+Port of ``havatar_tpu/ops/boxwarp.py`` (``get_box_warp_param``, ``BoxWarp``,
+``BoxWarpLegacy``).
 """
 
 from __future__ import annotations
@@ -49,3 +50,14 @@ class BoxWarp:
         trans = torch.tensor(self.trans, dtype=torch.float32,
                              device=coords.device)
         return (coords - trans) / scale
+
+
+class BoxWarpLegacy(BoxWarp):
+    """2 * (coordinates * scale + trans): the reference's older
+    ``UniformBoxWarp`` (utils/util.py:207-211)."""
+
+    def __call__(self, coords: torch.Tensor) -> torch.Tensor:
+        return 2.0 * super().__call__(coords)
+
+    def inv(self, coords: torch.Tensor) -> torch.Tensor:
+        return super().inv(coords * 0.5)

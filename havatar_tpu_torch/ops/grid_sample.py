@@ -3,14 +3,16 @@
 Port of the samplers of ``havatar_tpu/ops/grid_sample.py`` that rendering
 uses:
 
-* ``grid_sample_2d_quad``: the gather half of 2D ``zeros``-padding bilinear
-  sampling. It returns each point's four raw corner rows [N, 4C] and its
-  corner weights [N, 4] (``nerf_field.field_inputs_quad``, the input of
-  JAX's quad march kernels); ``grid_sample_2d_quad.calls`` counts its
-  calls, so that a run can show that no corner rows were made.
+* ``grid_sample_2d_quad``: the gather half of 2D bilinear sampling
+  (``zeros`` or ``border`` padding). It returns each point's four raw
+  corner rows [N, 4C] and its corner weights [N, 4]
+  (``nerf_field.field_inputs_quad``, the input of JAX's quad march
+  kernels); ``grid_sample_2d_quad.calls`` counts its calls, so that a run
+  can show that no corner rows were made.
 * ``grid_sample_2d``: the whole sampler, the gather plus an f32 corner
   reduction rounded to the features' dtype; ``sample_from_triplane`` applies
-  it to each feature plane.
+  it to each feature plane, ``sample_image_features`` to each view's image
+  features.
 * ``grid_sample_3d``: trilinear ``border``-padding sampling (skinning).
 
 Per-axis weights are computed against the *unclamped* floor index, so a
@@ -51,19 +53,25 @@ def _axis_weights(pix: torch.Tensor, size: int):
     return a0.long(), w0, w1
 
 
-def grid_sample_2d_quad(feat: torch.Tensor, coords: torch.Tensor
+def grid_sample_2d_quad(feat: torch.Tensor, coords: torch.Tensor,
+                        padding_mode: str = "zeros"
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """feat [B, H, W, C], coords [B, N, 2] -> (rows [B, N, 4C] in feat's
-    dtype, w4 [B, N, 4] float32), zeros padding.
+    dtype, w4 [B, N, 4] float32), ``zeros`` or ``border`` padding.
 
     Corner order (y0x0, y0x1, y1x0, y1x1); the bilinear value is
     ``einsum('bnkc,bnk->bnc', rows.view(B, N, 4, C).float(), w4)``.
     """
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unknown padding_mode {padding_mode!r}")
     grid_sample_2d_quad.calls += 1
     B, H, W, C = feat.shape
     N = coords.shape[1]
     x = _unnormalize(coords[..., 0], W)
     y = _unnormalize(coords[..., 1], H)
+    if padding_mode == "border":
+        x = x.clamp(0.0, W - 1)
+        y = y.clamp(0.0, H - 1)
     x0, wx0, wx1 = _axis_weights(x, W)
     y0, wy0, wy1 = _axis_weights(y, H)
     base = y0 * W + x0                                        # [B, N]
@@ -78,13 +86,14 @@ def grid_sample_2d_quad(feat: torch.Tensor, coords: torch.Tensor
 grid_sample_2d_quad.calls = 0
 
 
-def grid_sample_2d(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def grid_sample_2d(feat: torch.Tensor, coords: torch.Tensor,
+                   padding_mode: str = "zeros") -> torch.Tensor:
     """feat [B, H, W, C], coords [B, N, 2] -> [B, N, C] in feat's dtype:
-    bilinear, zeros padding, align_corners (torch ``F.grid_sample`` on a
-    [B, N, 1, 2] grid). The four corners are summed in float32 and the sum
-    rounded to feat's dtype, which is where the quad march kernels round
-    their corner reduction too."""
-    rows, w4 = grid_sample_2d_quad(feat, coords)
+    bilinear, ``zeros`` or ``border`` padding, align_corners (torch
+    ``F.grid_sample`` on a [B, N, 1, 2] grid). The four corners are summed
+    in float32 and the sum rounded to feat's dtype, which is where the quad
+    march kernels round their corner reduction too."""
+    rows, w4 = grid_sample_2d_quad(feat, coords, padding_mode)
     C = feat.shape[-1]
     acc = rows[..., :C].float() * w4[..., 0:1]
     for k in range(1, 4):
@@ -101,6 +110,17 @@ def sample_from_triplane(coords: torch.Tensor,
     return torch.stack(
         [grid_sample_2d(planes[p], coords[..., list(ax)])
          for p, ax in enumerate(axes)], dim=-1)
+
+
+def sample_image_features(xy: torch.Tensor, features: torch.Tensor,
+                          padding_mode: str = "border") -> torch.Tensor:
+    """Multi-view image features: xy [B, V, N, 2] normalised coordinates,
+    features [B, V, C, H, W] -> [B, V, N, C] (the reference's
+    ``img_feature``, utils/util.py:345-356)."""
+    feat = features.permute(0, 1, 3, 4, 2)
+    return torch.stack(
+        [grid_sample_2d(feat[:, v], xy[:, v], padding_mode)
+         for v in range(xy.shape[1])], dim=1)
 
 
 def grid_sample_3d(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Camera rays and occupancy gating of each ray's [near, far].
 
-Port of ``havatar_tpu/ops/rays.py``: ``get_rays_np`` and
-``make_ray_importance_sampling_map`` (host-side numpy, the same code),
-``ray_aabb_near_far``, ``head_world_aabb`` and
-``tighten_ray_near_far`` on torch tensors.
+Port of ``havatar_tpu/ops/rays.py``: ``intrinsics_to_K``, ``get_rays_np``
+and ``make_ray_importance_sampling_map`` (host-side numpy, the same code),
+``get_rays``, ``ray_aabb_near_far``, ``head_world_aabb``,
+``tighten_ray_near_far``, ``perspective_project`` and
+``project_multiview`` on torch tensors.
 """
 
 from __future__ import annotations
@@ -12,6 +13,14 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def intrinsics_to_K(intr, W: int, H: int) -> np.ndarray:
+    """(fx, fy, cx_frac, cy_frac) -> 3x3 K."""
+    K = np.eye(3, dtype=np.float32)
+    K[0, 0], K[1, 1] = intr[0], intr[1]
+    K[0, 2], K[1, 2] = intr[2] * W, intr[3] * H
+    return K
 
 
 def get_rays_np(H: int, W: int, intr, c2w: np.ndarray,
@@ -35,6 +44,23 @@ def get_rays_np(H: int, W: int, intr, c2w: np.ndarray,
         rays_d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
     rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape).copy()
     return rays_o.astype(np.float32), rays_d.astype(np.float32)
+
+
+def get_rays(H: int, W: int, intr, c2w: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``get_rays_np`` on a float32 tensor ``c2w`` (normalised directions),
+    on its device: (rays_o [H, W, 3], rays_d [H, W, 3])."""
+    fx, fy, cx, cy = intr[0], intr[1], intr[2] * W, intr[3] * H
+    c2w = torch.as_tensor(c2w, dtype=torch.float32)
+    j, i = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=c2w.device),
+        torch.arange(W, dtype=torch.float32, device=c2w.device),
+        indexing="ij")
+    dirs = torch.stack([(i - cx) / fx, (j - cy) / fy, torch.ones_like(i)],
+                       dim=-1)
+    rays_d = dirs @ c2w[:3, :3].T
+    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    return c2w[:3, -1].expand(rays_d.shape), rays_d
 
 
 def make_ray_importance_sampling_map(mask: np.ndarray,
@@ -106,3 +132,30 @@ def tighten_ray_near_far(ray_batch: torch.Tensor, xyz_bounding,
         ray_batch[..., 6:7], ray_batch[..., 7:8])
     return torch.cat([ray_batch[..., :6], near, far, ray_batch[..., 8:]],
                      dim=-1)
+
+
+def perspective_project(pts: torch.Tensor, extr: torch.Tensor,
+                        K: torch.Tensor, normalize: bool = False,
+                        width: int = 0, height: int = 0) -> torch.Tensor:
+    """[..., N, 3] world points through [..., 4, 4] extrinsics and
+    [..., 3, 3] K -> [..., N, 3] (pixel x, y, depth): cam = pts R^T + t,
+    x and y divided by depth; with ``normalize`` they map to [-1, 1] by the
+    align_corners convention (x / (W - 1) * 2 - 1)."""
+    cam = pts @ extr[..., :3, :3].transpose(-1, -2) + extr[..., None, :3, 3]
+    proj = cam @ K.transpose(-1, -2)
+    xy = proj[..., :2] / proj[..., 2:3]
+    if normalize:
+        scale = torch.tensor([2.0 / (width - 1), 2.0 / (height - 1)],
+                             dtype=xy.dtype, device=xy.device)
+        xy = xy * scale - 1.0
+    return torch.cat([xy, proj[..., 2:3]], dim=-1)
+
+
+def project_multiview(pts: torch.Tensor, extrs: torch.Tensor,
+                      intrs: torch.Tensor, img_w: int,
+                      img_h: int) -> torch.Tensor:
+    """[B, N, 3] points, [B, V, 4, 4] extrinsics, [B, V, 3, 3] K ->
+    [B, V, N, 3] normalised projections of each item's points in each of
+    its views."""
+    return perspective_project(pts[:, None], extrs, intrs, normalize=True,
+                               width=img_w, height=img_h)
