@@ -139,6 +139,27 @@ with a non-zero exit at the first failure:
    4096 against the CPU), the 512^2 discriminator with ``c_dim = 25`` at
    batch 2 (batch 1 against the CPU) and 2D ``border`` padding against
    ``F.grid_sample``.
+13. the preprocessing networks (run after phase 12, beside its inputs,
+   before phase 11's line is printed), on seeded weights in the
+   reference's key layouts, at full width, each on the card against the
+   same module on the CPU (TF32 off; the bounds ``NET_TOL`` and the rest,
+   from JAX's own tests): OpenSeeFace's landmark net, model types 0 to 3,
+   on 4 crops of 224^2 (the maps, and the decoded landmarks in pixels;
+   timed at 1 and 4 crops), the detection net at 224^2, the gaze net on
+   two 32^2 eye crops and RetinaFace at 640^2; RVM over phase 12's
+   14-frame 512^2 video at downsample ratio 0.25 carrying its recurrent
+   state (foreground, alpha and all four states, every frame) and frame 0
+   at 1.0; the tracker (landmark type 3, the detection and gaze nets, head
+   pose, features) over the 14 frames, whose seeded heads give a
+   confident face in frame 0; ``onnx_rt`` on a graph built in code; then
+   ``havatar_tpu_torch.cli.fit_video.main`` with ``--lm_weights``,
+   ``--detect_weights`` and ``--rvm_path ... --rvm_jax`` on seeded weight
+   files and phase 12's inputs, the fit shortened to 100 + 20 iterations
+   (phase 12 runs it at its defaults): the crop, every mask nonblank, the
+   split. It prints each net's ms a call, RVM's frames/s, the tracker's ms
+   a frame, RVM's and the tracker's launches, device busy time and idle
+   share a frame (torch.profiler), the phase's peak device memory and its
+   seconds, beside the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Comparisons run with
 TF32 off for matmuls and cuDNN, so the twins' float32 products are full
@@ -2950,42 +2971,405 @@ def _check_heads(dev) -> None:
            "phase 12: border padding against F.grid_sample")
 
 
-def phase_preprocess(dev) -> None:
+def phase_preprocess(dev, root: str) -> dict:
     """Phase 12: the seeded inputs, then ``cli/fit_video.py`` at its
     defaults on the card; its outputs, the rasterizer and a fit against
-    the CPU; the fit's launches an iteration; then the optional heads."""
+    the CPU; the fit's launches an iteration; then the optional heads. The
+    inputs are written under ``root``; returns them (phase 13 reads them)."""
     from havatar_tpu_torch.cli import fit_video
-    with tempfile.TemporaryDirectory(prefix="havatar_fit_") as root:
-        t0 = time.perf_counter()
-        inp = write_fit_inputs(root)
-        md = inp["model_dict"]
-        print(f"[12 preprocess] inputs in {time.perf_counter() - t0:.1f} s: "
-              f"FaceVerse dict V = {len(md['meanshape']) // 3}, F = "
-              f"{len(md['tri'])}, point_buf {md['point_buf'].shape}, "
-              f"ver_inds {md['ver_inds'].tolist()}; a {FIT_RES}^2 MJPG video "
-              f"of {FIT_FRAMES} frames", flush=True)
-        live = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = fit_video.main([
-            "--video_path", inp["video"], "--base_dir", inp["base"],
-            "--faceverse_path", inp["fv_path"],
-            "--exp52_path", inp["exp52_path"], "--lms_dir", inp["lms_dir"]])
-        wall = time.perf_counter() - t0
-        peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
-        later = [out["fit_s"][f] for f in out["frames"][1:]]
-        renders = list(out["render_s"].values())
-        print(f"[12 preprocess] cli/fit_video.py at its defaults "
-              f"({FIT_RES}^2, 2000 + 100 iterations): {wall:.2f} s; fit "
-              f"frame 0 {out['fit_s']['0']:.3f} s, a later frame "
-              f"{np.median(later):.3f} s (median; {min(later):.3f} to "
-              f"{max(later):.3f}); three renders a frame {np.median(renders):.3f}"
-              f" s (median); peak device memory {peak:.3f} GiB above the "
-              f"{live / 2 ** 30:.3f} GiB live before it", flush=True)
-        _check_splits_and_renders(inp, out)
-        _check_raster_and_fit(dev, inp, out)
-        _profile_fit(dev, inp)
+    t0 = time.perf_counter()
+    inp = write_fit_inputs(root)
+    md = inp["model_dict"]
+    print(f"[12 preprocess] inputs in {time.perf_counter() - t0:.1f} s: "
+          f"FaceVerse dict V = {len(md['meanshape']) // 3}, F = "
+          f"{len(md['tri'])}, point_buf {md['point_buf'].shape}, "
+          f"ver_inds {md['ver_inds'].tolist()}; a {FIT_RES}^2 MJPG video "
+          f"of {FIT_FRAMES} frames", flush=True)
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fit_video.main([
+        "--video_path", inp["video"], "--base_dir", inp["base"],
+        "--faceverse_path", inp["fv_path"],
+        "--exp52_path", inp["exp52_path"], "--lms_dir", inp["lms_dir"]])
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+    later = [out["fit_s"][f] for f in out["frames"][1:]]
+    renders = list(out["render_s"].values())
+    print(f"[12 preprocess] cli/fit_video.py at its defaults "
+          f"({FIT_RES}^2, 2000 + 100 iterations): {wall:.2f} s; fit "
+          f"frame 0 {out['fit_s']['0']:.3f} s, a later frame "
+          f"{np.median(later):.3f} s (median; {min(later):.3f} to "
+          f"{max(later):.3f}); three renders a frame {np.median(renders):.3f}"
+          f" s (median); peak device memory {peak:.3f} GiB above the "
+          f"{live / 2 ** 30:.3f} GiB live before it", flush=True)
+    _check_splits_and_renders(inp, out)
+    _check_raster_and_fit(dev, inp, out)
+    _profile_fit(dev, inp)
     _check_heads(dev)
+    return inp
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the preprocessing networks (preprocess/landmark_net.py,
+# tracker.py, retinaface.py, rvm.py, onnx_rt.py) and cli/fit_video.py's
+# network flags
+# ---------------------------------------------------------------------------
+
+# card against CPU, TF32 off. The conv nets start from JAX's own test
+# bounds (torch against JAX, both on a CPU): cuDNN's float32 algorithms sum
+# in other orders than the CPU's, through 20 to 60 layers.
+NET_TOL = dict(atol=2e-5, rtol=1e-4)          # landmark, detection, gaze
+RF_LOC_TOL = dict(atol=2e-4, rtol=1e-3)       # RetinaFace's box regression
+RF_CONF_TOL = dict(atol=1e-5, rtol=1e-4)      # its softmaxed scores
+RVM_FULL_ATOL = 2e-4                          # full resolution
+RVM_REFINED_ATOL = 5e-4                       # through the refiner, and
+                                              # the carried states
+# decoded landmarks, in pixels: the offsets' logit multiplies a map's error
+# by 1 / (p (1 - p)) x 223 / 16 x the crop scale
+LM_PX_ATOL = 1e-2
+ONNX_TOL = dict(atol=1e-4, rtol=1e-4)         # the hand-built graph
+RVM_RATIO = 0.25                              # the CLI's downsample ratio
+RVM_SEED = 63
+NET_BATCHES = (1, 4)                          # landmark crops a call
+NET_FIT_FLAGS = ["--first_frame_iters", "100", "--frame_iters", "20"]
+
+
+def _on(net, dev):
+    """A copy of a CPU module on ``dev``."""
+    import copy
+    return copy.deepcopy(net).to(dev).eval()
+
+
+def _close(got, want, tol: dict, where: str) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max())
+    _check(bool(torch.isfinite(got).all()), f"phase 13: {where} not finite")
+    _check(torch.allclose(got, want, **tol),
+           f"phase 13: {where}, card vs CPU, max err {err:.3e} (bound {tol})")
+    return err
+
+
+def _check_nets(dev) -> dict:
+    """The OpenSeeFace nets and RetinaFace at full width on seeded weights,
+    card against CPU; ms a call (CUDA events)."""
+    from havatar_tpu_torch.preprocess import landmark_net as L
+    from havatar_tpu_torch.preprocess.nets import seed_
+    from havatar_tpu_torch.preprocess.retinaface import RetinaFace
+    rng = np.random.RandomState(31)
+    cpu = torch.device("cpu")
+    res: dict = {"ms": {}, "err": {}}
+    with torch.inference_mode():
+        for mt in range(4):
+            net = L.seeded_net("landmark", 40 + mt, mt, confident=True)
+            x = torch.from_numpy(rng.randn(4, 3, 224, 224).astype(np.float32))
+            want, g, xd = net(x), _on(net, dev), x.to(dev)
+            got = g(xd)
+            res["err"][f"landmark{mt}"] = _close(
+                got, want, NET_TOL, f"landmark net {mt}, 4 crops")
+            px = 0.0
+            for i in range(4):
+                lg = L.decode_landmarks(L.nhwc(got[i:i + 1])[0])[1]
+                lw = L.decode_landmarks(L.nhwc(want[i:i + 1])[0])[1]
+                px = max(px, float(np.abs(lg - lw).max()))
+            _check(px <= LM_PX_ATOL, f"phase 13: landmark net {mt}'s decoded "
+                   f"landmarks, card vs CPU, {px:.3e} px")
+            res["err"][f"landmark{mt}_px"] = px
+            for b in NET_BATCHES:
+                res["ms"][f"landmark{mt}_b{b}"] = _time_ms(lambda: g(xd[:b]))
+        for kind, shape in (("detection", (1, 3, 224, 224)),
+                            ("gaze", (2, 3, 32, 32))):
+            net = L.seeded_net(kind, 50, confident=kind == "detection")
+            x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+            want, g, xd = net(x), _on(net, dev), x.to(dev)
+            got = g(xd)
+            pairs = zip(got, want) if kind == "detection" else [(got, want)]
+            for i, (a, b) in enumerate(pairs):
+                res["err"][f"{kind}{i}"] = _close(a, b, NET_TOL,
+                                                  f"{kind} net output {i}")
+            res["ms"][kind] = _time_ms(lambda: g(xd))
+        net = seed_(RetinaFace(), 51)
+        x = torch.from_numpy(rng.randn(1, 3, 640, 640).astype(np.float32) * 50)
+        want, g, xd = net(x), _on(net, dev), x.to(dev)
+        got = g(xd)
+        res["err"]["retinaface_loc"] = _close(got[0], want[0], RF_LOC_TOL,
+                                              "RetinaFace loc")
+        res["err"]["retinaface_conf"] = _close(got[1], want[1], RF_CONF_TOL,
+                                               "RetinaFace conf")
+        res["ms"]["retinaface"] = _time_ms(lambda: g(xd))
+    return res
+
+
+def _video_frames(path: str) -> list:
+    import cv2
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(f, cv2.COLOR_BGR2RGB))
+    cap.release()
+    return frames
+
+
+def _check_rvm(dev, net, frames) -> dict:
+    """RVM over the video at ``RVM_RATIO`` carrying its state, and frame 0
+    at full resolution, card against CPU; the net's ms a frame (CUDA
+    events over the stream) and the backend's frames/s, launches and idle
+    share (torch.profiler)."""
+    from havatar_tpu_torch.preprocess.matting import RVMBackend
+    g = _on(net, dev)
+    srcs = [torch.from_numpy(f).permute(2, 0, 1)[None].float() / 255.0
+            for f in frames]
+    res: dict = {}
+    with torch.inference_mode():
+        want = net(srcs[0])
+        got = g(srcs[0].to(dev))
+        res["full_err"] = max(
+            _close(a, b, dict(atol=RVM_FULL_ATOL, rtol=0),
+                   f"RVM frame 0 at ratio 1.0, output {i}")
+            for i, (a, b) in enumerate(zip(got[:2] + tuple(got[2]),
+                                           want[:2] + tuple(want[2]))))
+        rec_c, rec_g, err = (None,) * 4, (None,) * 4, 0.0
+        for k, s in enumerate(srcs):
+            fw, pw, rec_c = net(s, rec_c, RVM_RATIO)
+            fg, pg, rec_g = g(s.to(dev), rec_g, RVM_RATIO)
+            for i, (a, b) in enumerate(zip((fg, pg) + tuple(rec_g),
+                                           (fw, pw) + tuple(rec_c))):
+                err = max(err, _close(
+                    a, b, dict(atol=RVM_REFINED_ATOL, rtol=0),
+                    f"RVM frame {k} at ratio {RVM_RATIO}, output {i}"))
+            pha = pg.float()
+            _check(0 < float(pha.mean()) < 1, f"phase 13: RVM frame {k}'s "
+                   "alpha is blank or full")
+        res["stream_err"] = err
+        sd = [s.to(dev) for s in srcs]
+
+        def stream():
+            rec = (None,) * 4
+            for s in sd:
+                rec = g(s, rec, RVM_RATIO)[2]
+
+        res["net_ms"] = _time_ms(stream, iters=3, warmup=1) / len(sd)
+    backend = RVMBackend(g, RVM_RATIO, dev)
+    for f in frames:
+        backend.alpha(f)
+    backend.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames:
+        backend.alpha(f)
+    res["backend_ms"] = (time.perf_counter() - t0) * 1e3 / len(frames)
+    backend.reset()
+    profile_device(lambda i: backend.alpha(frames[i]), len(frames),
+                   res["backend_ms"], "13 rvm", "frame")
+    return res
+
+
+def _check_tracker(dev, files: dict, frames) -> dict:
+    """The tracker (landmark type 3, detection and gaze nets, head pose,
+    features) over the video on the card against the CPU; its ms a frame
+    on the host clock, launches and idle share."""
+    from havatar_tpu_torch.preprocess.tracker import Tracker
+    H, W = frames[0].shape[:2]
+    kw = dict(detect_weights=files["detection"], gaze_weights=files["gaze"],
+              estimate_pose=True, extract_features=True)
+    trackers = {d: Tracker.from_weights(W, H, files["landmark"], device=d,
+                                        **kw) for d in (dev, "cpu")}
+    res = {"px": 0.0, "eye_px": 0.0, "faces": 0}
+    for k, f in enumerate(frames):
+        out = {}
+        for d, tr in trackers.items():
+            np.random.seed(k)                 # headpose.adjust draws
+            out[d] = tr.predict(f)
+        got, want = out[dev], out["cpu"]
+        _check(len(got) == len(want), f"phase 13: tracker frame {k}: "
+               f"{len(got)} faces on the card, {len(want)} on the CPU")
+        _check(k > 0 or len(got) == 1, "phase 13: the tracker found no face "
+               "in frame 0")
+        for a, b in zip(got, want):
+            _check(abs(a.conf - b.conf) < 1e-4, f"phase 13: tracker frame "
+                   f"{k}'s confidence {a.conf} vs {b.conf}")
+            res["px"] = max(res["px"], float(np.abs(a.lms - b.lms).max()))
+            res["eye_px"] = max(res["eye_px"], float(np.abs(
+                a.eye_state - b.eye_state).max()))
+            _check(a.quaternion is not None and bool(
+                np.isfinite(a.quaternion).all()) and abs(
+                np.linalg.norm(a.quaternion) - 1) < 1e-3,
+                f"phase 13: tracker frame {k}'s head pose")
+            _check(len(a.features) == 14 and all(
+                np.isfinite(v) for v in a.features.values()),
+                f"phase 13: tracker frame {k}'s features")
+        res["faces"] += len(got)
+    _check(res["px"] <= LM_PX_ATOL and res["eye_px"] <= LM_PX_ATOL,
+           f"phase 13: tracker landmarks {res['px']:.3e} px, eyes "
+           f"{res['eye_px']:.3e} px, card vs CPU (bound {LM_PX_ATOL})")
+    tr = Tracker.from_weights(W, H, files["landmark"], device=dev, **kw)
+    for f in frames:
+        tr.predict(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames:
+        tr.predict(f)
+    res["ms"] = (time.perf_counter() - t0) * 1e3 / len(frames)
+    profile_device(lambda i: tr.predict(frames[i]), len(frames), res["ms"],
+                   "13 tracker", "frame")
+    return res
+
+
+def _onnx_graph(rng):
+    """A mobile-net stem as an ONNX graph built in code: an asymmetric-pad
+    stride-2 conv, a depthwise FusedConv (Clip 0..6), a max-pool, a 1x1
+    conv, HardSwish, an align-corners Resize, the global pool and a Gemm."""
+    from havatar_tpu_torch.preprocess.onnx_rt import OnnxGraph, OnnxNode
+
+    def w(*shape):
+        return (rng.randn(*shape) / math.sqrt(np.prod(shape[1:]))).astype(
+            np.float32)
+
+    nodes = [
+        OnnxNode("Conv", ["x", "w1", "b1"], ["c1"],
+                 {"strides": [2, 2], "pads": [0, 0, 1, 1]}),
+        OnnxNode("FusedConv", ["c1", "w2", "b2"], ["c2"],
+                 {"group": 16, "pads": [1, 1, 1, 1], "activation": "Clip",
+                  "activation_params": [0.0, 6.0]}),
+        OnnxNode("MaxPool", ["c2"], ["p"], {"kernel_shape": [3, 3],
+                                           "strides": [2, 2],
+                                           "pads": [1, 1, 1, 1]}),
+        OnnxNode("Conv", ["p", "w3"], ["c3"], {}),
+        OnnxNode("HardSwish", ["c3"], ["h"], {}),
+        OnnxNode("Resize", ["h", "", "", "size"], ["r"],
+                 {"mode": "linear",
+                  "coordinate_transformation_mode": "align_corners"}),
+        OnnxNode("GlobalAveragePool", ["r"], ["g"], {}),
+        OnnxNode("Flatten", ["g"], ["f"], {}),
+        OnnxNode("Gemm", ["f", "w4", "b4"], ["y"], {"transB": 1}),
+        OnnxNode("Softmax", ["y"], ["s"], {"axis": 1})]
+    inits = {"w1": w(16, 3, 3, 3), "b1": w(16, 1) * 0.1, "w2": w(16, 1, 3, 3),
+             "b2": w(16, 1) * 0.1, "w3": w(32, 16, 1, 1),
+             "size": np.asarray([4, 32, 112, 112], np.int64),
+             "w4": w(10, 32), "b4": w(10, 1)[:, 0] * 0.1}
+    inits["b1"], inits["b2"] = inits["b1"][:, 0], inits["b2"][:, 0]
+    return OnnxGraph(nodes, inits, ["x"], ["r", "s"])
+
+
+def _check_onnx(dev) -> dict:
+    from havatar_tpu_torch.preprocess.onnx_rt import OnnxModel
+    rng = np.random.RandomState(52)
+    graph = _onnx_graph(rng)
+    x = torch.from_numpy(rng.randn(4, 3, 224, 224).astype(np.float32))
+    want = OnnxModel(graph, "cpu")(x)
+    model = OnnxModel(graph, dev)
+    xd = x.to(dev)
+    got = model(xd)
+    err = max(_close(a, b, ONNX_TOL, f"onnx_rt graph output {i}")
+              for i, (a, b) in enumerate(zip(got, want)))
+    return {"err": err, "ms": _time_ms(lambda: model(xd))}
+
+
+def _run_cli_with_nets(root: str, inp: dict, files: dict) -> dict:
+    """``cli/fit_video.main`` with the three network flags on phase 12's
+    inputs, the fit shortened (phase 12 runs it at its defaults); the crop,
+    every mask nonblank, and the split."""
+    import cv2
+    from havatar_tpu_torch.cli import fit_video
+    base = os.path.join(root, "out_nets")
+    t0 = time.perf_counter()
+    out = fit_video.main([
+        "--video_path", inp["video"], "--base_dir", base,
+        "--faceverse_path", inp["fv_path"], "--exp52_path", inp["exp52_path"],
+        "--lms_dir", inp["lms_dir"], "--lm_weights", files["landmark"],
+        "--detect_weights", files["detection"], "--rvm_path", files["rvm"],
+        "--rvm_jax"] + NET_FIT_FLAGS)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(base, "crop_param.json")) as fh:
+        top, left, size, pad = json.load(fh)
+    _check(size > 0 and pad == FIT_RES // 2, f"phase 13: the tracker's crop "
+           f"{[top, left, size, pad]}")
+    means = []
+    for d in ("mv_rgb", "mv_mask"):
+        names = sorted(os.listdir(os.path.join(base, f"{d}{FIT_RES}", "0")))
+        _check(names == sorted(f"{i}.png" for i in range(FIT_FRAMES)),
+               f"phase 13: {d} holds {names}")
+    for i in range(FIT_FRAMES):
+        m = cv2.imread(os.path.join(base, f"mv_mask{FIT_RES}", "0", f"{i}.png"),
+                       cv2.IMREAD_GRAYSCALE)
+        means.append(float(m.mean()))
+        _check(0 < means[-1] < 255, f"phase 13: mask {i} is blank or full")
+    with open(out["split"]) as fh:
+        fidx = sorted(f["fidx"] for f in json.load(fh)["frames"])
+    _check(fidx == list(range(10, FIT_FRAMES)),
+           f"phase 13: the split holds frames {fidx}")
+    _check(out["frames"] == [str(i) for i in range(FIT_FRAMES)],
+           f"phase 13: fitted frames {out['frames']}")
+    return {"wall": wall, "crop": [top, left, size, pad],
+            "mask_mean": float(np.mean(means))}
+
+
+def write_net_weights(root: str) -> dict:
+    """Seeded weight files in the reference's key layouts under
+    ``root/nets``: the landmark net (type 3) and the detection net with
+    ``confident_heads_``, the gaze net, RVM. Returns their paths by kind."""
+    from havatar_tpu_torch.preprocess import landmark_net as L
+    from havatar_tpu_torch.preprocess.rvm import seeded_rvm
+    files = {}
+    os.makedirs(os.path.join(root, "nets"), exist_ok=True)
+    for kind, make in (
+            ("landmark", lambda: L.seeded_net("landmark", 60, 3, True)),
+            ("detection", lambda: L.seeded_net("detection", 61,
+                                               confident=True)),
+            ("gaze", lambda: L.seeded_net("gaze", 62)),
+            ("rvm", lambda: seeded_rvm(RVM_SEED))):
+        files[kind] = os.path.join(root, "nets", f"{kind}.pth")
+        torch.save(make().state_dict(), files[kind])
+    return files
+
+
+def phase_networks(dev, root: str, inp: dict) -> None:
+    """Phase 13 (see the module docstring), in ``root`` beside phase 12's
+    inputs ``inp``."""
+    from havatar_tpu_torch.preprocess.rvm import seeded_rvm
+    t0 = time.perf_counter()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    nets = _check_nets(dev)
+    print(f"[13 networks] {smi}: ms a call (CUDA events, seeded weights, "
+          f"full width): " + json.dumps(
+              {k: round(v, 4) for k, v in nets["ms"].items()}), flush=True)
+    print("[13 networks] max err card vs CPU: " + json.dumps(
+        {k: float(f"{v:.3e}") for k, v in nets["err"].items()}), flush=True)
+    files = write_net_weights(root)
+    frames = _video_frames(inp["video"])
+    _check(len(frames) == FIT_FRAMES, f"phase 13: read {len(frames)} frames")
+    rvm = _check_rvm(dev, seeded_rvm(RVM_SEED), frames)
+    print(f"[13 networks] {smi}: RVM {FIT_RES}^2 at ratio {RVM_RATIO}: net "
+          f"{rvm['net_ms']:.4f} ms a frame ({1e3 / rvm['net_ms']:.1f} "
+          f"frames/s, CUDA events over the {FIT_FRAMES}-frame stream); "
+          f"backend (upload, net, alpha to the host) {rvm['backend_ms']:.4f} "
+          f"ms a frame ({1e3 / rvm['backend_ms']:.1f} frames/s, host clock); "
+          f"max err card vs CPU {rvm['stream_err']:.3e} over the stream, "
+          f"{rvm['full_err']:.3e} at ratio 1.0", flush=True)
+    trk = _check_tracker(dev, files, frames)
+    print(f"[13 networks] {smi}: tracker (landmark type 3, detection, gaze, "
+          f"pose, features) {trk['ms']:.4f} ms a frame (host clock, "
+          f"{FIT_FRAMES} frames, {trk['faces']} faces); landmarks card vs "
+          f"CPU {trk['px']:.3e} px, eyes {trk['eye_px']:.3e} px", flush=True)
+    onnx = _check_onnx(dev)
+    print(f"[13 networks] onnx_rt graph (4 x 3 x 224^2): {onnx['ms']:.4f} ms "
+          f"a call; max err card vs CPU {onnx['err']:.3e}", flush=True)
+    cli = _run_cli_with_nets(root, inp, files)
+    peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+    print(f"[13 networks] cli/fit_video.py --lm_weights --detect_weights "
+          f"--rvm_path --rvm_jax ({' '.join(NET_FIT_FLAGS)}): "
+          f"{cli['wall']:.2f} s; crop {cli['crop']}, mean mask "
+          f"{cli['mask_mean']:.1f} of 255; phase peak device memory "
+          f"{peak:.3f} GiB above the {live / 2 ** 30:.3f} GiB live before "
+          f"it; phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def phase_kernel_line(captured, launches, serve_launches) -> list:
@@ -3095,7 +3479,10 @@ def main() -> int:
     field_rows = phase_field(dev, golden_coarse)
     del golden_coarse
     torch.cuda.empty_cache()
-    phase_preprocess(dev)
+    with tempfile.TemporaryDirectory(prefix="havatar_fit_") as root:
+        inp = phase_preprocess(dev, root)
+        torch.cuda.empty_cache()
+        phase_networks(dev, root, inp)
     rows = phase_kernel_line({**captured, **captured_x},
                              {**launches, **launches_x}, serve_launches)
     rows += mlp_kernel_rows(train_captured, train_counts, bf16_counts)

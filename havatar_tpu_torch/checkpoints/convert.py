@@ -284,3 +284,172 @@ def from_jax_params(variables: Mapping) -> StateDict:
     if "final_linear0" in params:
         return _discriminator(params)
     return _generator(params, "")
+
+
+# ---------------------------------------------------------------------------
+# The preprocessing networks: JAX's BN-folded pytrees -> the port's modules
+# ---------------------------------------------------------------------------
+# JAX folds each BatchNorm into its conv (HWIO weight, bias) when it
+# converts a reference file; the port keeps the BatchNorm. A folded pair
+# crosses as the conv's weight and an identity BatchNorm that adds the
+# bias: scale 1, running mean 0 and running variance 1 - eps (so that
+# var + eps is 1 and the scale divides by one).
+
+def _set_conv(conv, w, b=None) -> None:
+    with torch.no_grad():
+        conv.weight.copy_(_oihw(w))
+        if b is not None:
+            if conv.bias is None:
+                raise ValueError(f"{conv} has no bias for the JAX bias")
+            conv.bias.copy_(_t(b))
+
+
+def _set_folded(conv, bn, w, b) -> None:
+    _set_conv(conv, w)
+    with torch.no_grad():
+        bn.weight.fill_(1.0)
+        bn.bias.copy_(_t(b))
+        bn.running_mean.zero_()
+        bn.running_var.fill_(1.0 - bn.eps)
+
+
+def _seq(seq, d: Mapping) -> None:
+    """A (conv, BN[, act]) Sequential from {"w", "b"}, or a bare conv."""
+    if isinstance(seq, torch.nn.Conv2d):
+        _set_conv(seq, d["w"], d.get("b"))
+    else:
+        _set_folded(seq[0], seq[1], d["w"], d["b"])
+
+
+def _ds_head(mod, p: Mapping) -> None:
+    """DSConv2d (any ``old``) from {dw_w, dw_b, pw_w, pw_b}."""
+    convs = [m for m in mod.conv if isinstance(m, torch.nn.Conv2d)]
+    bns = [m for m in mod.conv if isinstance(m, torch.nn.BatchNorm2d)]
+    for i, k in enumerate(("dw", "pw")):
+        if bns:
+            _set_folded(convs[i], bns[i], p[f"{k}_w"], p[f"{k}_b"])
+        else:
+            _set_conv(convs[i], p[f"{k}_w"], p[f"{k}_b"])
+
+
+def _openseeface_from_jax(net, params: Mapping):
+    from havatar_tpu_torch.preprocess import landmark_net as L
+
+    _set_folded(net.conv_stem, net.bn1, params["stem"]["w"],
+                params["stem"]["b"])
+    for si, stage in enumerate(net.blocks):
+        for bi, blk in enumerate(stage):
+            p = params["blocks"][f"{si}_{bi}"]
+            if isinstance(blk, L.ConvBnAct):
+                _set_folded(blk.conv, blk.bn1, p["conv_w"], p["conv_b"])
+                continue
+            if isinstance(blk, L.InvertedResidual):
+                _set_folded(blk.conv_pw, blk.bn1, p["pw_w"], p["pw_b"])
+                _set_folded(blk.conv_dw, blk.bn2, p["dw_w"], p["dw_b"])
+                _set_folded(blk.conv_pwl, blk.bn3, p["pwl_w"], p["pwl_b"])
+            else:
+                _set_folded(blk.conv_dw, blk.bn1, p["dw_w"], p["dw_b"])
+                _set_folded(blk.conv_pw, blk.bn2, p["pw_w"], p["pw_b"])
+            if blk.se is not None:
+                se = p["se"]
+                _set_conv(blk.se.conv_reduce, se["reduce_w"], se["reduce_b"])
+                _set_conv(blk.se.conv_expand, se["expand_w"], se["expand_b"])
+    for name in ("up1", "up2", "up3"):
+        if hasattr(net, name):
+            _ds_head(getattr(net, name).conv, params[name])
+    _ds_head(net.group, params["group"])
+    return net.eval()
+
+
+def landmark_net_from_jax(params: Mapping, model_type: int = 3):
+    """JAX landmark params (``convert_torch_landmark_model`` or
+    ``init_landmark_params``) -> ``LandmarkNet`` on the CPU."""
+    from havatar_tpu_torch.preprocess.landmark_net import LandmarkNet
+
+    return _openseeface_from_jax(LandmarkNet(model_type), params)
+
+
+def detection_net_from_jax(params: Mapping):
+    """JAX ``convert_torch_detection_model`` params (the large backbone at
+    0.1, its defaults) -> ``DetectionNet``."""
+    from havatar_tpu_torch.preprocess.landmark_net import DetectionNet
+
+    return _openseeface_from_jax(DetectionNet(), params)
+
+
+def gaze_net_from_jax(params: Mapping):
+    """JAX ``convert_torch_gaze_model`` params -> ``GazeNet``."""
+    from havatar_tpu_torch.preprocess.landmark_net import GazeNet
+
+    return _openseeface_from_jax(GazeNet(), params)
+
+
+def retinaface_from_jax(params: Mapping):
+    """JAX ``convert_torch_retinaface`` params -> ``RetinaFace``."""
+    from havatar_tpu_torch.preprocess.retinaface import RetinaFace
+
+    net = RetinaFace()
+    _seq(net.body.stage1[0], params["stem"])
+    for stage, name in ((net.body.stage1[1:], "stage1"),
+                        (net.body.stage2, "stage2"),
+                        (net.body.stage3, "stage3")):
+        for blk, p in zip(stage, params[name]):
+            _set_folded(blk[0], blk[1], p["dw"]["w"], p["dw"]["b"])
+            _set_folded(blk[3], blk[4], p["pw"]["w"], p["pw"]["b"])
+    f = params["fpn"]
+    for mod, key in (("output1", "out1"), ("output2", "out2"),
+                     ("output3", "out3"), ("merge1", "merge1"),
+                     ("merge2", "merge2")):
+        _seq(getattr(net.fpn, mod), f[key])
+    for k in (1, 2, 3):
+        ssh, p = getattr(net, f"ssh{k}"), params[f"ssh{k}"]
+        for mod, key in (("conv3X3", "c3"), ("conv5X5_1", "c5_1"),
+                         ("conv5X5_2", "c5"), ("conv7X7_2", "c7_1"),
+                         ("conv7X7_3", "c7")):
+            _seq(getattr(ssh, mod), p[key])
+    for k in range(3):
+        _seq(net.ClassHead[k].conv1x1, params["class_head"][k])
+        _seq(net.BboxHead[k].conv1x1, params["bbox_head"][k])
+    return net.eval()
+
+
+def rvm_from_jax(params: Mapping):
+    """JAX ``convert_torch_rvm`` params -> ``MattingNetwork``."""
+    from havatar_tpu_torch.preprocess.rvm import MattingNetwork
+
+    net = MattingNetwork()
+    bb = params["backbone"]
+    feats = net.backbone.features
+    _seq(feats[0], bb["stem"])
+    _seq(feats[16], bb["head"])
+    for i, p in enumerate(bb["blocks"]):
+        layers = list(feats[i + 1].block)
+        j = 0
+        if "expand" in p:
+            _seq(layers[0], p["expand"])
+            j = 1
+        _seq(layers[j], p["dw"])
+        if "se_fc1" in p:
+            _seq(layers[j + 1].fc1, p["se_fc1"])
+            _seq(layers[j + 1].fc2, p["se_fc2"])
+        _seq(layers[-1], p["project"])
+    _seq(net.aspp.aspp1, params["aspp"]["aspp1"])
+    _seq(net.aspp.aspp2[1], params["aspp"]["aspp2"])
+    dec = params["decoder"]
+    for name in ("decode4", "decode3", "decode2", "decode1"):
+        blk = getattr(net.decoder, name)
+        _seq(blk.gru.ih[0], dec[name]["gru"]["ih"])
+        _seq(blk.gru.hh[0], dec[name]["gru"]["hh"])
+        if name != "decode4":
+            _seq(blk.conv, dec[name]["conv"])
+    conv0 = net.decoder.decode0.conv
+    _seq(conv0[0:2], dec["decode0"]["conv0"])
+    _seq(conv0[3:5], dec["decode0"]["conv1"])
+    _seq(net.project_mat.conv, params["project_mat"])
+    if "refiner" in params:
+        r, conv = params["refiner"], net.refiner.conv
+        _seq(net.refiner.box_filter, r["box_filter"])
+        _seq(conv[0:2], r["conv0"])
+        _seq(conv[3:5], r["conv1"])
+        _seq(conv[6], r["conv2"])
+    return net.eval()

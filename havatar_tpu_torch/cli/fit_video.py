@@ -2,13 +2,14 @@
 
 Usage:
   python -m havatar_tpu_torch.cli.fit_video --video_path V.mp4 --base_dir OUT \\
-      --lms_dir LMS [--faceverse_path F.npy] [--rvm_path RVM.torchscript] \\
+      --lms_dir LMS [--faceverse_path F.npy] [--lm_weights LM.pth \\
+      [--detect_weights DET.pth]] [--rvm_path RVM [--rvm_jax]] \\
       [--avatar_tracking_dir AVATAR_DIR] [--device cpu]
 
 Port of ``havatar_tpu/cli/fit_video.py``, with its flags and outputs plus
 ``--device`` (default: the CUDA device, and it raises without one). It runs
-frame extraction and the fixed face crop, matting (RVM TorchScript, or the
-masks already in ``mv_mask{tar_size}/0``), the FaceVerse fit of every frame
+frame extraction and the fixed face crop, matting (RVM, or the masks
+already in ``mv_mask{tar_size}/0``), the FaceVerse fit of every frame
 (frame 0 with the first-frame optimizer and the identity, frames 1-9 with
 the identity, the rest without), each frame's ``coeffs.npy``,
 ``metaFace_extr.npz``, ``finish`` marker and three ortho condition renders
@@ -16,10 +17,15 @@ and normals, then ``sv_v31_all.json`` (or the ``drive_*.json`` split with
 ``--avatar_tracking_dir``).
 
 Needs the FaceVerse model file (a download in the reference too) and
-landmarks: MediaPipe, or precomputed ``{frame}.npy`` files (``--lms_dir``).
-The repository's own landmark and matting networks (``--lm_weights``,
-``--detect_weights``, ``--rvm_jax``) are not ported yet, and those flags
-raise.
+landmarks for the fit: MediaPipe, or precomputed ``{frame}.npy`` files
+(``--lms_dir``). The crop takes frame 0's landmarks from the same source,
+or, with ``--lm_weights``, from the repository's OpenSeeFace tracker
+(preprocess/tracker.py; the reference's split: OpenSeeFace for the crop,
+MediaPipe for the fit's landmarks), which finds the face with the
+detection net of ``--detect_weights`` or, without it, crops the whole
+frame. ``--rvm_path F`` mats with F as an RVM TorchScript file, or with
+``--rvm_jax`` through the repository's own RVM network
+(preprocess/rvm.py; the flag keeps the JAX CLI's name).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from havatar_tpu_torch.preprocess.rasterizer import (
     DEFAULT_CHUNK,
     chunk_peak_bytes,
 )
+from havatar_tpu_torch.preprocess.tracker import Tracker
 
 FOCAL = 1315.0          # the reference's fitting intrinsics (fit_video.py:31)
 EARLY_FRAMES = 10       # frames 1..9 still fit the identity
@@ -62,16 +69,20 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--lms_dir", type=str, default="",
                    help="precomputed landmark .npy dir (else mediapipe)")
     p.add_argument("--lm_weights", type=str, default="",
-                   help="OpenSeeFace landmark weights: " +
-                   landmarks.NETWORKS_NOT_PORTED)
+                   help="OpenSeeFace landmark weights (lm_model3.pth or an "
+                        ".npz of it): the repository's tracker "
+                        "(preprocess/tracker.py) finds the crop instead of "
+                        "the fit's landmark source")
     p.add_argument("--detect_weights", type=str, default="",
-                   help="OpenSeeFace detection weights: " +
-                   landmarks.NETWORKS_NOT_PORTED)
+                   help="OpenSeeFace detection.pth for the tracker's face "
+                        "detector (else the tracker crops the whole frame)")
     p.add_argument("--rvm_path", type=str, default="",
-                   help="RVM torchscript for matting (else precomputed masks)")
+                   help="RVM weights for matting: a TorchScript file, or "
+                        "with --rvm_jax the official .pth (else the masks "
+                        "in mv_mask{tar_size}/0)")
     p.add_argument("--rvm_jax", action="store_true",
-                   help="the repository's RVM network: " +
-                   landmarks.NETWORKS_NOT_PORTED)
+                   help="run --rvm_path through the repository's own RVM "
+                        "network (preprocess/rvm.py) instead of TorchScript")
     p.add_argument("--tar_size", type=int, default=512)
     p.add_argument("--cam_dist", type=float, default=10.0)
     p.add_argument("--first_frame_iters", type=int, default=2000)
@@ -89,30 +100,41 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     (the fit's loss at its first and last iteration), and ``split`` (the
     split file)."""
     args = _parser().parse_args(argv)
-    for flag in ("lm_weights", "detect_weights", "rvm_jax"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag}: the repository's landmark and matting networks "
-                f"are {landmarks.NETWORKS_NOT_PORTED}")
     dev = resolve_device(args.device)
     import cv2
 
     lm_backend = (landmarks.PrecomputedBackend(args.lms_dir) if args.lms_dir
                   else landmarks.get_backend("mediapipe"))
 
-    # 1. frame extraction and the fixed crop from frame 0's landmarks
-    def detect(frame_rgb):
-        if hasattr(lm_backend, "set_frame"):
-            lm_backend.set_frame("0")
-        return lm_backend.detect(frame_rgb)
+    # 1. frame extraction and the fixed crop from frame 0's landmarks: the
+    # tracker's 66 with --lm_weights, else the fit's landmark source
+    if args.lm_weights:
+        def detect(frame_rgb):
+            h, w = frame_rgb.shape[:2]
+            tr = Tracker.from_weights(
+                w, h, args.lm_weights,
+                detect_weights=args.detect_weights or None, device=dev)
+            preds = tr.predict(frame_rgb)
+            return preds[0].lms[:66, :2] if preds else None
+
+        crop_fn = video.crop_params_from_landmarks
+    else:
+        def detect(frame_rgb):
+            if hasattr(lm_backend, "set_frame"):
+                lm_backend.set_frame("0")
+            return lm_backend.detect(frame_rgb)
+
+        crop_fn = video.crop_params_from_mediapipe
 
     n = video.extract_video_frames(args.video_path, args.base_dir, detect,
                                    dst_resolution=args.tar_size,
-                                   crop_fn=video.crop_params_from_mediapipe)
+                                   crop_fn=crop_fn)
     print(f"extracted {n + 1} frames")
 
     # 2. matting
-    if args.rvm_path:
+    if args.rvm_path and args.rvm_jax:
+        mb = matting.RVMBackend(args.rvm_path, device=dev)
+    elif args.rvm_path:
         mb = matting.RVMTorchBackend(args.rvm_path, device=dev)
     else:
         mask_dir = os.path.join(args.base_dir, f"mv_mask{args.tar_size}", "0")

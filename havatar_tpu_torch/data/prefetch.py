@@ -12,19 +12,26 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Iterator
 
 import numpy as np
 import torch
 
+from havatar_tpu_torch.device import DeviceLike, resolve_device
+
 
 def device_prefetch(iterator: Iterator, size: int = 2,
-                    device: Optional[torch.device] = None,
-                    keys=None) -> Iterator:
+                    device: DeviceLike = None, keys=None) -> Iterator:
     """Wrap a host batch iterator; yields batches whose ``keys`` (all array
-    values when None) are tensors on ``device``, staying ``size`` batches
+    values when None) are tensors on ``device`` (None: the CUDA device, and
+    it raises here, when called, without one), staying ``size`` batches
     ahead on a background thread. Other entries pass through as they are."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = resolve_device(device)
+    return _prefetch(iterator, size, device, keys)
+
+
+def _prefetch(iterator: Iterator, size: int, device: torch.device,
+              keys) -> Iterator:
     on_cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if on_cuda else None
     q: queue.Queue = queue.Queue(maxsize=size)

@@ -1,15 +1,16 @@
 """Face-landmark backends for the fitting.
 
-Port of ``havatar_tpu/preprocess/landmarks.py``'s backends that need no
-network of the repository's own. The fitting needs one [478, 2] pixel
-landmark array a frame:
+Port of ``havatar_tpu/preprocess/landmarks.py``. The fitting needs one
+[478, 2] pixel landmark array a frame:
 
 * ``MediapipeBackend``: MediaPipe FaceMesh (the reference's landmark
   source), imported when the backend is built;
-* ``PrecomputedBackend``: ``{frame}.npy`` files written by any tracker.
-
-The OpenSeeFace landmark network (JAX: ``JaxOpenSeeFaceBackend``) is not
-ported yet (ROADMAP.md, Queue 1: the preprocessing networks).
+* ``PrecomputedBackend``: ``{frame}.npy`` files written by any tracker;
+* ``OpenSeeFaceBackend`` (JAX: ``JaxOpenSeeFaceBackend``): OpenSeeFace's
+  landmark net (preprocess/landmark_net.py) on the device, the whole frame
+  as the crop; 66 (x, y) landmarks, enough for the crop and presence role
+  OpenSeeFace plays in the reference (fit_video.py:534-638; pair with
+  ``video.crop_params_from_landmarks``).
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
 
-NETWORKS_NOT_PORTED = ("not ported yet: the preprocessing networks "
-                       "(ROADMAP.md, Queue 1)")
+from havatar_tpu_torch.device import DeviceLike, resolve_device
 
 
 class LandmarkBackend:
@@ -65,20 +66,56 @@ class PrecomputedBackend(LandmarkBackend):
         return np.load(path).astype(np.float32)
 
 
+class OpenSeeFaceBackend(LandmarkBackend):
+    """OpenSeeFace's 66-point landmark net on ``device``. ``detect`` runs
+    the whole frame as the crop (the reference's first, whole-frame
+    detection) and returns [66, 2] (x, y) pixel landmarks, or None below
+    ``conf_threshold``."""
+
+    def __init__(self, weights_path: str, model_type: int = 3,
+                 conf_threshold: float = 0.2, device: DeviceLike = None):
+        from havatar_tpu_torch.preprocess import landmark_net as L
+
+        self._L = L
+        self.device = resolve_device(device)
+        self.model_type = model_type
+        self.conf_threshold = conf_threshold
+        self.net = L.load_landmark_weights(weights_path, model_type,
+                                           self.device)
+
+    def detect(self, frame_rgb: np.ndarray) -> Optional[np.ndarray]:
+        L = self._L
+        h, w = frame_rgb.shape[:2]
+        with torch.inference_mode():
+            hm = L.nhwc(self.net(L.nchw(L.preprocess_crop(frame_rgb),
+                                        self.device)))[0]
+        conf, lms_yx = L.decode_landmarks(
+            hm, crop_info=(0.0, 0.0, w / 224.0, h / 224.0))
+        if conf < self.conf_threshold:
+            return None
+        return lms_yx[:, [1, 0]].astype(np.float32)  # (y,x,conf) -> (x,y)
+
+
 def get_backend(name: str = "auto", **kwargs) -> LandmarkBackend:
-    """``mediapipe``, ``precomputed`` (``lms_dir=``) or ``auto`` (MediaPipe
-    if it imports, else precomputed files); ``openseeface`` raises."""
-    if name == "openseeface":
-        raise NotImplementedError(f"the OpenSeeFace backend is "
-                                  f"{NETWORKS_NOT_PORTED}")
+    """``mediapipe``, ``openseeface`` (``lm_weights=``, ``model_type=``,
+    ``device=``; a missing weights file raises), ``precomputed``
+    (``lms_dir=``) or ``auto`` (the first of these that is available)."""
     if name in ("auto", "mediapipe"):
         try:
             return MediapipeBackend()
         except ImportError:
             if name == "mediapipe":
                 raise
+    if name in ("auto", "openseeface"):
+        path = kwargs.get("lm_weights")
+        if path and os.path.exists(path):
+            return OpenSeeFaceBackend(path,
+                                      model_type=kwargs.get("model_type", 3),
+                                      device=kwargs.get("device"))
+        if name == "openseeface":
+            raise RuntimeError(f"landmark weights not found: {path}")
     if name in ("auto", "precomputed") and "lms_dir" in kwargs:
         return PrecomputedBackend(kwargs["lms_dir"])
     raise RuntimeError(
-        "no landmark backend available: install mediapipe, or give "
-        "precomputed landmarks via lms_dir=")
+        "no landmark backend available: install mediapipe, give OpenSeeFace "
+        "weights via lm_weights=, or precomputed landmarks via lms_dir=")

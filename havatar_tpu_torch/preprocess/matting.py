@@ -1,16 +1,16 @@
 """Background matting backends.
 
-Port of ``havatar_tpu/preprocess/matting.py``'s backends that need no
-network of the repository's own:
+Port of ``havatar_tpu/preprocess/matting.py``:
 
-* ``RVMTorchBackend``: Robust Video Matting from its TorchScript file (the
-  reference's matting, fit_video.py:640-659), on the port's device;
+* ``RVMBackend`` (JAX: ``JaxRVMBackend``): the repository's own Robust
+  Video Matting network (preprocess/rvm.py) on the device, from the
+  official weights file; the recurrent states stay on the device from
+  frame to frame;
+* ``RVMTorchBackend``: RVM from its TorchScript file (the reference's
+  matting, fit_video.py:640-659), on the port's device;
 * ``PrecomputedBackend``: existing mask PNGs;
 * ``ThresholdBackend``: a colour-distance threshold against a background
   frame.
-
-The RVM network rebuilt in the repository (JAX: ``JaxRVMBackend``) is not
-ported yet (ROADMAP.md, Queue 1: the preprocessing networks).
 """
 
 from __future__ import annotations
@@ -54,6 +54,34 @@ class RVMTorchBackend(MattingBackend):
         with torch.no_grad():
             fgr, pha, *self.rec = self.model(src, *self.rec,
                                              self.downsample_ratio)
+        return pha[0, 0].cpu().numpy()
+
+
+class RVMBackend(MattingBackend):
+    """Recurrent matting through preprocess/rvm.py, frame by frame with the
+    4 recurrent states carried on the device (fit_video.py:640-659);
+    ``reset`` clears them. ``weights``: a ``MattingNetwork`` or the path of
+    the official rvm_mobilenetv3 ``.pth`` / TorchScript file."""
+
+    def __init__(self, weights, downsample_ratio: float = 0.25,
+                 device: DeviceLike = None):
+        from havatar_tpu_torch.preprocess import rvm
+
+        self.device = resolve_device(device)
+        if isinstance(weights, str):
+            weights = rvm.load_rvm_weights(weights, self.device)
+        self.net = weights.to(self.device).eval()
+        self.downsample_ratio = downsample_ratio
+        self.rec = (None,) * 4
+
+    def reset(self) -> None:
+        self.rec = (None,) * 4
+
+    def alpha(self, frame_rgb: np.ndarray) -> np.ndarray:
+        src = (torch.from_numpy(frame_rgb).to(self.device)
+               .permute(2, 0, 1)[None].float() / 255.0)
+        with torch.inference_mode():
+            _, pha, self.rec = self.net(src, self.rec, self.downsample_ratio)
         return pha[0, 0].cpu().numpy()
 
 

@@ -11,9 +11,11 @@ loss rtol 1e-4; frame 0's front render against havatar_tpu's
 ``render_ortho_condition`` on the JAX coefficients (uint8, at most one
 level apart); the split's frames against havatar_tpu's ``make_transform``
 on the JAX fits (atol 1e-4), and an item of it loads through the port's
-``AvatarDataset`` with finite rays. The flags of the networks not yet
-ported raise, and without ``--device`` on a host with no CUDA the CLI
-raises.
+``AvatarDataset`` with finite rays. Under the flags of the repository's
+networks (``--lm_weights``, ``--detect_weights``, ``--rvm_path --rvm_jax``)
+on seeded weight files, a 3-frame video goes through the port's CLI and
+havatar_tpu's: the same crop and frames, the masks at most one level
+apart. Without ``--device`` on a host with no CUDA the CLI raises.
 """
 
 import json
@@ -31,6 +33,8 @@ from havatar_tpu.preprocess import pipeline as JP
 from havatar_tpu.preprocess.rasterizer import render_ortho_condition
 from havatar_tpu_torch.cli import fit_video
 from havatar_tpu_torch.data.dataset import AvatarDataset
+from havatar_tpu_torch.preprocess import landmark_net as L
+from havatar_tpu_torch.preprocess import rvm as RVM
 from havatar_tpu_torch.utils.cfgnode import CfgNode
 
 from test_fit_video_e2e import make_fake_faceverse
@@ -181,12 +185,91 @@ def test_split_matches_jax_and_loads(run, jax_fits, tmp_path):
     assert np.isfinite(item["mv_rays"]).all()
 
 
-@pytest.mark.parametrize("flag", [["--lm_weights", "w.npz"],
-                                  ["--detect_weights", "d.pth"],
-                                  ["--rvm_jax"]])
-def test_unported_network_flags_raise(run, flag):
-    with pytest.raises(NotImplementedError, match="preprocessing networks"):
-        fit_video.main(run["argv"] + ["--device", "cpu"] + flag)
+NET_RES, NET_FRAMES = 64, 3
+
+
+@pytest.fixture(scope="module")
+def net_inputs(run):
+    """Seeded weight files in the reference's layouts (the landmark and
+    detection nets with ``confident_heads_``), and a 3-frame video with its
+    landmarks for the fit."""
+    import cv2
+
+    tmp = run["tmp"] / "nets"
+    tmp.mkdir()
+    files = {}
+    for flag, make in (
+            ("--lm_weights", lambda: L.seeded_net("landmark", 21, 3, True)),
+            ("--detect_weights", lambda: L.seeded_net("detection", 22,
+                                                      confident=True)),
+            ("--rvm_path", lambda: RVM.seeded_rvm(23))):
+        files[flag] = str(tmp / f"{flag[2:]}.pth")
+        torch.save(make().state_dict(), files[flag])
+    rng = np.random.RandomState(24)
+    video = str(tmp / "input.avi")
+    vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                         (NET_RES, NET_RES))
+    for _ in range(NET_FRAMES):
+        frame = (rng.rand(NET_RES, NET_RES, 3) * 60).astype(np.uint8)
+        frame[12:52, 16:48] = 200
+        vw.write(frame)
+    vw.release()
+    lms_dir = tmp / "lms"
+    lms_dir.mkdir()
+    for i in range(NET_FRAMES):
+        np.save(lms_dir / f"{i}.npy", _landmarks(rng, i))
+    argv = ["--video_path", video, "--faceverse_path", run["fv_path"],
+            "--exp52_path", str(tmp / "none"), "--lms_dir", str(lms_dir),
+            "--tar_size", str(NET_RES), "--first_frame_iters", "2",
+            "--frame_iters", "1", "--base_zero_frame", "1"]
+    return dict(tmp=tmp, files=files, argv=argv)
+
+
+@pytest.mark.parametrize("flags", [["--lm_weights"],
+                                   ["--lm_weights", "--detect_weights"],
+                                   ["--rvm_path", "--rvm_jax"]])
+def test_network_flags_match_jax_cli(net_inputs, flags, monkeypatch):
+    """The port's CLI and havatar_tpu's, on the CPU, under the networks'
+    flags: the same crop_param.json and mv_rgb frames, masks at most one
+    level apart (the RVM's alpha agrees within 5e-4 before it is rounded to
+    uint8), each frame fitted and the split written."""
+    import cv2
+
+    from havatar_tpu.cli import fit_video as jax_cli
+
+    extra = []
+    for f in flags:
+        extra += [f] if f == "--rvm_jax" else [f, net_inputs["files"][f]]
+    bases = {}
+    for tag in ("port", "jax"):
+        base = str(net_inputs["tmp"] / f"{'_'.join(flags)}_{tag}")
+        if "--rvm_path" not in flags:
+            mask_dir = os.path.join(base, f"mv_mask{NET_RES}", "0")
+            os.makedirs(mask_dir)
+            m = np.zeros((NET_RES, NET_RES), np.uint8)
+            m[8:-8, 8:-8] = 255
+            for i in range(NET_FRAMES):
+                cv2.imwrite(os.path.join(mask_dir, f"{i}.png"), m)
+        argv = net_inputs["argv"] + ["--base_dir", base] + extra
+        if tag == "port":
+            out = fit_video.main(argv + ["--device", "cpu"])
+            assert out["frames"] == [str(i) for i in range(NET_FRAMES)]
+        else:
+            monkeypatch.setattr("sys.argv", ["fit_video"] + argv)
+            jax_cli.main()
+        assert os.path.exists(os.path.join(base, "sv_v31_all.json"))
+        bases[tag] = base
+    assert (open(os.path.join(bases["port"], "crop_param.json")).read()
+            == open(os.path.join(bases["jax"], "crop_param.json")).read())
+    for d in (f"mv_rgb{NET_RES}/0", f"mv_mask{NET_RES}/0"):
+        names = sorted(os.listdir(os.path.join(bases["port"], d)))
+        assert names == [f"{i}.png" for i in range(NET_FRAMES)]
+        for n in names:
+            got, want = (cv2.imread(os.path.join(bases[t], d, n)).astype(int)
+                         for t in ("port", "jax"))
+            assert np.abs(got - want).max() <= (1 if "mask" in d else 0)
+            if "mask" in d:
+                assert 0 < got.mean() < 255
 
 
 def test_no_device_needs_cuda(run):

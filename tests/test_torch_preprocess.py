@@ -509,5 +509,5 @@ def test_video_crop_and_backends_match_jax(tmp_path):
     be = TLM.PrecomputedBackend(str(lms_dir))
     be.set_frame("7")
     assert be.detect(frame) is None
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="landmark weights not found"):
         TLM.get_backend("openseeface")
