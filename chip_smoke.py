@@ -160,6 +160,38 @@ with a non-zero exit at the first failure:
    a frame, RVM's and the tracker's launches, device busy time and idle
    share a frame (torch.profiler), the phase's peak device memory and its
    seconds, beside the card's name and power limit.
+14. cross-reenactment, multi-view and batch fitting (run after phase 13,
+   beside phase 12's inputs, before phase 11's line is printed). (a) A
+   second seeded 14-frame video of another actor on phase 12's FaceVerse
+   dict goes through ``cli/fit_video.py --avatar_tracking_dir`` (phase 12's
+   tracking) at its defaults, whose drive split holds no frame yet;
+   ``animation.video_animation`` renders each drive frame's conditions;
+   ``make_animation_transform`` writes the split again; a seeded stage-2
+   ``.pt`` of a rebuilt flagship is served on it through
+   ``cli/reenact.py``, fast gated 16 + 16 (every drive frame, 512^2 PNGs,
+   the quad march kernels once a frame each) and exact (one frame, no
+   kernel); two drive frames have different conditions and images, and the
+   first served frame is held against ``make_reenact_fn`` on the same
+   tensors as in phase 6. (b) Four calibrated views of the head (a raw
+   calibration and crop parameters; 6 frames a view; landmarks from seeded
+   coefficients through each camera, one view of frame 3 without a face)
+   through ``cli/fit_video_mv.py`` at its defaults: ``calib_512.json``
+   against the adjustment worked out by hand, frame 0's landmark error in
+   every view at least tenfold below its start, a 10-iteration joint fit
+   card against CPU at phase 12's bounds (100 iterations printed beside the
+   CPU fit's own spread under one-ulp nudges of its start: the joint fit
+   keeps Adam at 1e-2 to the end and does not settle), the split through
+   ``AvatarDataset``, the joint fit's launches an iteration at V = 1 and
+   V = 4 (torch.profiler). (c) Three seeded 4-frame videos (one with a
+   frame without a face) through ``cli/fit_videos_batch.py`` at its
+   defaults with ``--save_fvmask`` and ``--save_lmscounter``, at 1 and 4
+   IO workers: the two save roots equal bit for bit, the ``skip`` marker
+   and ``no_face_log.json``; a third run on a finished root fits nothing.
+   It prints the seconds a frame of each fit, the renders' and the served
+   frames/s, frames/hour and idle shares, the phase's seconds and peak
+   device memory, beside the card's name and power limit. The ``kernels``
+   line's quad march rows carry the drive run's launches
+   (``launches_drive``).
 
 The last line is ``{"ok": true, "device": {...}}``. Comparisons run with
 TF32 off for matmuls and cuDNN, so the twins' float32 products are full
@@ -1039,17 +1071,93 @@ def _write_split(root: str, rng, n_frames: int, targets: bool) -> str:
     return split
 
 
-def _write_serving_files(root: str, fs) -> tuple:
-    """A stage-2 checkpoint of the flagship's seeded modules with seeded
-    latent codes, and a driving split of SERVE_FRAMES frames (see
-    ``_write_split``). Returns (checkpoint, split)."""
+def _write_checkpoint(root: str, fs, rng) -> str:
+    """A stage-2 checkpoint of the flagship's seeded modules with
+    SERVE_FRAMES seeded latent codes (``singleview_512_HD_base.yml``'s
+    layout); returns its path."""
     from havatar_tpu_torch.checkpoints.stage2 import stage2_checkpoint
-    rng = np.random.RandomState(7)
     latents = torch.from_numpy(
         (rng.randn(SERVE_FRAMES, 32) * 0.5).astype(np.float32))
     ckpt = os.path.join(root, "latest.pt")
     torch.save(stage2_checkpoint(fs.renderer, fs.generator, latents, 0), ckpt)
+    return ckpt
+
+
+def _write_serving_files(root: str, fs) -> tuple:
+    """A stage-2 checkpoint (``_write_checkpoint``) and a driving split of
+    SERVE_FRAMES frames (see ``_write_split``). Returns (checkpoint,
+    split)."""
+    rng = np.random.RandomState(7)
+    ckpt = _write_checkpoint(root, fs, rng)
     return ckpt, _write_split(root, rng, SERVE_FRAMES, targets=False)
+
+
+def _direct_frame(dev, config: str, ckpt: str, split: str):
+    """The split's first item through ``make_reenact_fn`` (fast, gated
+    16 + 16) on the checkpoint's modules, batched as the serving loop
+    batches it. Returns (the uint8 frame [H, W, 3], the test-mode
+    dataset)."""
+    from havatar_tpu_torch.cli import reenact as cli
+    from havatar_tpu_torch.cli.common import resolve_config
+    from havatar_tpu_torch.data import AvatarDataset
+    from havatar_tpu_torch.infer.reenact import make_reenact_fn, mean_style
+    from havatar_tpu_torch.models.generators import StyleUNetSR
+    from havatar_tpu_torch.models.skinning import fix_canonical_volume
+    from havatar_tpu_torch.train.stage1 import build_renderer
+    cfg = resolve_config(config)
+    variables, latents, g_ema, _ = cli.load_inference_weights(ckpt)
+    renderer = build_renderer(cfg, compute_dtype=torch.bfloat16,
+                              skin_compute_dtype=None,
+                              use_fused_march=True)
+    sr = cfg.models.StyleUnet
+    generator = StyleUNetSR(
+        inp_size=sr.inp_size, inp_ch=sr.inp_ch, out_size=sr.out_size,
+        style_dim=cfg.gan.latent, n_mlp=cfg.gan.n_mlp,
+        channel_multiplier=cfg.gan.channel_multiplier,
+        compute_dtype=torch.bfloat16)
+    renderer.load_state_dict(variables)
+    generator.load_state_dict(g_ema)
+    renderer, generator = renderer.to(dev).eval(), generator.to(dev).eval()
+    frame_fn = make_reenact_fn(renderer, generator, num_coarse=16,
+                               num_fine=16, gated=True)
+    ds = AvatarDataset(split, mode="test", cfg=cfg,
+                       down_sample=cfg.dataset.down_sample, full_image=True)
+    item = ds.load_item(0)
+
+    # batched as the loader batches (np.stack: a dense batch axis). The
+    # same values with another stride on the size-1 batch axis (numpy's
+    # a[None]) take another route through the bf16 layers, and the frame
+    # then differs by bf16 rounding: up to 3 of 255 on 17% of the values
+    # on an H100.
+    def t(k, lo=0, hi=None):
+        return torch.from_numpy(np.stack([item[k]])[..., lo:hi]).to(dev)
+
+    with torch.inference_mode():
+        vol = fix_canonical_volume(renderer.skin_volume())
+    direct = frame_fn(
+        vol, mean_style(cfg.gan.latent, seed=cfg.experiment.randomseed,
+                        device=dev),
+        t("mv_rays", 0, 8), t("mv_rays", 8, 11),
+        latents[0:1].to(dev), t("inv_head_T"),
+        t("front_render_cond"), t("left_render_cond"),
+        t("right_render_cond"))[0].cpu().numpy()
+    return direct, ds
+
+
+def _check_served(served, direct, tag: str) -> None:
+    """A served frame's PNG against ``_direct_frame``'s: at most 1 apart
+    in uint8, and not clamped almost everywhere."""
+    diff = np.abs(served.astype(np.int16) - direct.astype(np.int16))
+    inside = float(((direct > 0) & (direct < 255)).mean())
+    print(f"{tag} from its PNG vs make_reenact_fn on the same "
+          f"tensors: max abs diff {int(diff.max())} of 255, "
+          f"{float((diff > 0).mean()):.2e} of the values differ; "
+          f"{inside:.3f} of the values lie strictly inside (0, 255)",
+          flush=True)
+    _check(int(diff.max()) <= 1, f"{tag}: served frame differs by "
+           f"{diff.max()}")
+    _check(inside > 0.05, f"{tag}: served frames are clamped almost "
+           "everywhere")
 
 
 def phase_serve(dev, fs, bare_frame_ms: float) -> dict:
@@ -1058,14 +1166,8 @@ def phase_serve(dev, fs, bare_frame_ms: float) -> dict:
     the process is warm). Returns the quad kernels' launch counts over the
     fast runs."""
     from havatar_tpu_torch.cli import reenact as cli
-    from havatar_tpu_torch.cli.common import resolve_config
-    from havatar_tpu_torch.data import AvatarDataset
     from havatar_tpu_torch.data.image_io import imread_rgb, imwrite_rgb
-    from havatar_tpu_torch.infer.reenact import make_reenact_fn, mean_style
-    from havatar_tpu_torch.models.generators import StyleUNetSR
-    from havatar_tpu_torch.models.skinning import fix_canonical_volume
     from havatar_tpu_torch.ops import march as M
-    from havatar_tpu_torch.train.stage1 import build_renderer
     config = SERVE_CONFIG
     counters = (M.march_coarse, M.march_fine, M.march_coarse_x,
                 M.march_fine_x)
@@ -1123,26 +1225,7 @@ def phase_serve(dev, fs, bare_frame_ms: float) -> dict:
                "the second gated run wrote other frames than the first")
 
         # the first served frame against make_reenact_fn on the same tensors
-        cfg = resolve_config(config)
-        variables, latents, g_ema, _ = cli.load_inference_weights(ckpt)
-        renderer = build_renderer(cfg, compute_dtype=torch.bfloat16,
-                                  skin_compute_dtype=None,
-                                  use_fused_march=True)
-        sr = cfg.models.StyleUnet
-        generator = StyleUNetSR(
-            inp_size=sr.inp_size, inp_ch=sr.inp_ch, out_size=sr.out_size,
-            style_dim=cfg.gan.latent, n_mlp=cfg.gan.n_mlp,
-            channel_multiplier=cfg.gan.channel_multiplier,
-            compute_dtype=torch.bfloat16)
-        renderer.load_state_dict(variables)
-        generator.load_state_dict(g_ema)
-        renderer, generator = renderer.to(dev).eval(), generator.to(dev).eval()
-        frame_fn = make_reenact_fn(renderer, generator, num_coarse=16,
-                                   num_fine=16, gated=True)
-        ds = AvatarDataset(split, mode="test", cfg=cfg,
-                           down_sample=cfg.dataset.down_sample,
-                           full_image=True)
-        item = ds.load_item(0)
+        direct, ds = _direct_frame(dev, config, ckpt, split)
         # the loop's host work on its own, on one thread: an item's decode
         # (six 256^2 PNGs, rays, conditions) and a 512^2 frame's PNG encode
         frame0 = pngs["fast gated 16+16"][items[0]]
@@ -1156,34 +1239,8 @@ def phase_serve(dev, fs, bare_frame_ms: float) -> dict:
         print(f"[6 serve] host work alone, mean of 8: load_item "
               f"{(t1 - t0) / 8 * 1e3:.2f} ms, imwrite_rgb of a 512^2 frame "
               f"{(t2 - t1) / 8 * 1e3:.2f} ms", flush=True)
-
-        # batched as the loader batches (np.stack: a dense batch axis). The
-        # same values with another stride on the size-1 batch axis (numpy's
-        # a[None]) take another route through the bf16 layers, and the frame
-        # then differs by bf16 rounding: up to 3 of 255 on 17% of the values
-        # on an H100.
-        def t(k, lo=0, hi=None):
-            return torch.from_numpy(np.stack([item[k]])[..., lo:hi]).to(dev)
-
-        with torch.inference_mode():
-            vol = fix_canonical_volume(renderer.skin_volume())
-        direct = frame_fn(
-            vol, mean_style(cfg.gan.latent, seed=cfg.experiment.randomseed,
-                            device=dev),
-            t("mv_rays", 0, 8), t("mv_rays", 8, 11),
-            latents[0:1].to(dev), t("inv_head_T"),
-            t("front_render_cond"), t("left_render_cond"),
-            t("right_render_cond"))[0].cpu().numpy()
     served = pngs["fast gated 16+16"][items[0]]
-    diff = np.abs(served.astype(np.int16) - direct.astype(np.int16))
-    inside = float(((direct > 0) & (direct < 255)).mean())
-    print(f"[6 serve] {items[0]} from its PNG vs make_reenact_fn on the same "
-          f"tensors: max abs diff {int(diff.max())} of 255, "
-          f"{float((diff > 0).mean()):.2e} of the values differ; "
-          f"{inside:.3f} of the values lie strictly inside (0, 255)",
-          flush=True)
-    _check(int(diff.max()) <= 1, f"served frame differs by {diff.max()}")
-    _check(inside > 0.05, "served frames are clamped almost everywhere")
+    _check_served(served, direct, f"[6 serve] {items[0]}")
     a = torch.from_numpy(pngs["exact blind 64+16"][items[0]] / 255.0)
     b = torch.from_numpy(pngs["fast blind 64+16"][items[0]] / 255.0)
     g = torch.from_numpy(served / 255.0)
@@ -2635,33 +2692,47 @@ def faceverse_dict(rng):
     return md, raw_base(bases(52, 0.01))
 
 
-def _gt_coeffs(rng, i: int, exp_dims: int, id_c):
+def _gt_coeffs(rng, i: int, exp_dims: int, id_c, yaw: float = 0.0):
     """Frame i's pose drifts (0.1 rad and 0.1 units over the video, from
-    0.2 to 0.3 rad off the fit's start); the expression is new each
-    frame."""
+    0.2 to 0.3 rad off the fit's start, the yaw shifted by ``yaw``); the
+    expression is new each frame."""
     from havatar_tpu_torch.preprocess import faceverse as FV
     c = np.zeros((1, FV.ID_DIMS + exp_dims + FV.TEX_DIMS + 38), np.float32)
     a = FV.ID_DIMS + exp_dims + FV.TEX_DIMS
     c[0, :FV.ID_DIMS] = id_c
     c[0, FV.ID_DIMS:FV.ID_DIMS + exp_dims] = np.abs(rng.randn(exp_dims)) * 0.3
     s = i / FIT_FRAMES
-    c[0, a:a + 3] = [0.2 + 0.1 * s, -0.25 + 0.1 * s, 0.05]
+    c[0, a:a + 3] = [0.2 + 0.1 * s, -0.25 + 0.1 * s + yaw, 0.05]
     c[0, a + 30:a + 33] = [0.1 + 0.05 * s, -0.15 + 0.1 * s, 0.2]
     c[0, a + 33:a + 37] = rng.randn(4) * 0.05
     c[0, -1] = 1.0
     return c
 
 
-def write_fit_inputs(root: str, seed: int = 12) -> dict:
-    """Write the fit's inputs under ``root``: the FaceVerse files, a
+def _face_frame(rng, lms):
+    """A seeded FIT_RES^2 frame: noise and a flat ellipse about the
+    landmarks. Returns (BGR frame, mask), both uint8."""
+    yy, xx = np.mgrid[:FIT_RES, :FIT_RES]
+    cx, cy = lms[:, 0].mean(), lms[:, 1].mean()
+    inside = ((xx - cx) / 150) ** 2 + ((yy - cy) / 190) ** 2 < 1
+    frame = (rng.rand(FIT_RES, FIT_RES, 3) * 40).astype(np.uint8)
+    frame[inside] = (180, 160, 140)
+    return frame, inside.astype(np.uint8) * 255
+
+
+def write_fit_inputs(root: str, seed: int = 12, faceverse=None,
+                     yaw: float = 0.0) -> dict:
+    """Write the fit's inputs under ``root``: the FaceVerse files (a seeded
+    dict, or ``faceverse``'s (dict, exBase_52) when given), a
     ``FIT_RES``^2 MJPG video of ``FIT_FRAMES`` frames, each frame's
-    landmarks (the seeded model's projection at a drifting pose, plus
-    noise) and its mask. Returns the paths and the ground truth."""
+    landmarks (the model's projection at a drifting pose, its yaw shifted
+    by ``yaw``, plus noise) and its mask. Returns the paths and the ground
+    truth."""
     import cv2
     from havatar_tpu_torch.preprocess import faceverse as FV
     rng = np.random.RandomState(seed)
     os.makedirs(root, exist_ok=True)
-    md, exp52 = faceverse_dict(rng)
+    md, exp52 = faceverse if faceverse is not None else faceverse_dict(rng)
     fv_path, exp52_path = (os.path.join(root, "faceverse_v3_1.npy"),
                            os.path.join(root, "exBase_52.npy"))
     np.save(fv_path, md, allow_pickle=True)
@@ -2678,21 +2749,16 @@ def write_fit_inputs(root: str, seed: int = 12) -> dict:
     vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 25,
                          (FIT_RES, FIT_RES))
     _check(vw.isOpened(), "phase 12: OpenCV's MJPG video writer did not open")
-    yy, xx = np.mgrid[:FIT_RES, :FIT_RES]
     gts = []
     for i in range(FIT_FRAMES):
-        c = _gt_coeffs(rng, i, model.exp_dims, id_c)
+        c = _gt_coeffs(rng, i, model.exp_dims, id_c, yaw)
         lms, _ = FV.forward_landmarks(model, torch.from_numpy(c), *intr)
         lms = lms[0].numpy() + rng.randn(478, 2) * FIT_LM_NOISE_PX
         np.save(os.path.join(lms_dir, f"{i}.npy"), lms.astype(np.float32))
         gts.append(c)
-        cx, cy = lms[:, 0].mean(), lms[:, 1].mean()
-        inside = ((xx - cx) / 150) ** 2 + ((yy - cy) / 190) ** 2 < 1
-        frame = (rng.rand(FIT_RES, FIT_RES, 3) * 40).astype(np.uint8)
-        frame[inside] = (180, 160, 140)
+        frame, mask = _face_frame(rng, lms)
         vw.write(frame)
-        cv2.imwrite(os.path.join(mask_dir, f"{i}.png"),
-                    inside.astype(np.uint8) * 255)
+        cv2.imwrite(os.path.join(mask_dir, f"{i}.png"), mask)
     vw.release()
     _check(os.path.getsize(video) > 0, "phase 12: the video is empty")
     return dict(fv_path=fv_path, exp52_path=exp52_path, lms_dir=lms_dir,
@@ -2859,24 +2925,31 @@ def _time_raster_windows(verts, tri, colors) -> None:
           "(CUDA events, 5 views): " + "; ".join(line), flush=True)
 
 
+def _profile_iters(run, n: int) -> tuple:
+    """``run()`` under torch.profiler -> (device launches, device busy ms),
+    each divided by ``n``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in on_dev) / n,
+            sum(e.self_device_time_total for e in on_dev) / 1e3 / n)
+
+
 def _profile_fit(dev, inp) -> None:
     """Launches, device busy time and host time an iteration of a later
     frame's fit (torch.profiler, ``FIT_PROFILE_ITERS`` iterations)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from havatar_tpu_torch.preprocess import faceverse as FV
     model = FV.load_model_dict(inp["model_dict"], inp["exp52"], device=dev)
     c10 = np.load(os.path.join(inp["base"], "tracking", "10", "coeffs.npy"))
     _, _, secs = _fit_on(dev, inp, model, 11, FIT_PROFILE_ITERS, c10)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _fit_on(dev, inp, model, 11, FIT_PROFILE_ITERS, c10)
-        torch.cuda.synchronize()
-    on_dev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
     n = FIT_PROFILE_ITERS
-    launches = sum(e.count for e in on_dev) / n
-    busy = sum(e.self_device_time_total for e in on_dev) / 1e3 / n
+    launches, busy = _profile_iters(
+        lambda: _fit_on(dev, inp, model, 11, n, c10), n)
     host = secs * 1e3 / n
     print(f"[12 preprocess] fit: {launches:.1f} device launches an iteration, "
           f"device busy {busy:.4f} ms of {host:.4f} ms an iteration on the "
@@ -3372,11 +3445,542 @@ def phase_networks(dev, root: str, inp: dict) -> None:
           f"it; phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def phase_kernel_line(captured, launches, serve_launches) -> list:
+# ---------------------------------------------------------------------------
+# phase 14: cross-reenactment (preprocess/animation.py, the drive split
+# served through cli/reenact.py), multi-view fitting (cli/fit_video_mv.py)
+# and batch fitting (cli/fit_videos_batch.py)
+# ---------------------------------------------------------------------------
+
+DRIVE_SEED, DRIVE_YAW = 14, -0.1   # the drive actor: another id, expressions
+MV_VIEWS, MV_FRAMES, MV_SEED = ("0", "1", "2", "3"), 6, 15
+MV_NO_FACE = (3, "2")              # frame 3 has no face in view 2
+MV_RAW_RES, MV_PAD = 1024, 16      # the cameras' frames before the crop
+MV_LM_DROP = 10.0                  # frame 0's mean error, first / last
+MV_V_LAUNCH_RATIO = 1.1            # launches an iteration, V = 4 over V = 1
+MV_SHORT_ITERS = 10                # card vs CPU at phase 12's bounds
+MV_NUDGES = (1e-7, -1e-7, 2e-7, -2e-7)   # relative, of frame 1's start
+BATCH_VIDEOS, BATCH_FRAMES, BATCH_SEED = 3, 4, 16
+BATCH_NO_FACE = ("vid1", 2)        # frame 2 of vid1 has no face
+BATCH_WORKERS = (1, 4)
+BATCH_FOCAL = 4.2647               # cli/fit_videos_batch.py's default
+BATCH_ITERS = (500, 100)           # its default first and later iterations
+
+
+def _phase_cross(dev, root: str, inp: dict) -> dict:
+    """14 (a): a second seeded video on phase 12's FaceVerse dict, fitted
+    with ``--avatar_tracking_dir`` on phase 12's tracking at the CLI's
+    defaults; its drive conditions through ``animation.video_animation``;
+    the drive split written again; a seeded stage-2 ``.pt``; the split
+    served through ``cli/reenact.py``, fast gated 16 + 16, then exact.
+    Returns the quad march kernels' launches over the fast run."""
+    from havatar_tpu_torch.cli import fit_video
+    from havatar_tpu_torch.cli import reenact as cli
+    from havatar_tpu_torch.data.image_io import imread_rgb
+    from havatar_tpu_torch.infer.reenact import build_flagship
+    from havatar_tpu_torch.ops import march as M
+    from havatar_tpu_torch.preprocess import animation
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    from havatar_tpu_torch.preprocess.pipeline import make_animation_transform
+    drv = write_fit_inputs(os.path.join(root, "drive"), seed=DRIVE_SEED,
+                           faceverse=(inp["model_dict"], inp["exp52"]),
+                           yaw=DRIVE_YAW)
+    avatar_track = os.path.join(inp["base"], "tracking")
+    t0 = time.perf_counter()
+    fit = fit_video.main([
+        "--video_path", drv["video"], "--base_dir", drv["base"],
+        "--faceverse_path", inp["fv_path"], "--exp52_path",
+        inp["exp52_path"], "--lms_dir", drv["lms_dir"],
+        "--avatar_tracking_dir", avatar_track])
+    fit_wall = time.perf_counter() - t0
+    _check(fit["frames"] == [str(i) for i in range(FIT_FRAMES)],
+           f"phase 14: drive frames fitted {fit['frames']}")
+    with open(fit["split"]) as fh:
+        before = len(json.load(fh)["frames"])
+    # the CLI writes the drive split before any drive render exists, as
+    # the JAX CLI does: the split holds no frame until it is written again
+    _check(before == 0, f"phase 14: the CLI's drive split holds {before} "
+           "frames before video_animation")
+    later = [fit["fit_s"][f] for f in fit["frames"][1:]]
+    print(f"[14 drive] cli/fit_video.py --avatar_tracking_dir at its "
+          f"defaults: {fit_wall:.2f} s; fit frame 0 {fit['fit_s']['0']:.3f} "
+          f"s, a later frame {np.median(later):.3f} s (median); frame 0's "
+          f"loss {fit['first_loss']['0']:.6g} -> {fit['last_loss']['0']:.6g}"
+          f"; the CLI's drive split: {before} frames", flush=True)
+
+    model = FV.load_model_file(inp["fv_path"], inp["exp52_path"], device=dev)
+    drive_track = os.path.join(drv["base"], "tracking")
+    base_frame = os.path.join(avatar_track, "10")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = animation.video_animation(model, drive_track, base_frame, "drive")
+    anim_s = (time.perf_counter() - t0) / max(n, 1)
+    _check(n == FIT_FRAMES, f"phase 14: video_animation rendered {n} frames")
+    half = FIT_RES / 2
+    cam_K = np.asarray([[fit_video.FOCAL, 0, half],
+                        [0, fit_video.FOCAL, half], [0, 0, 1]], np.float32)
+    calib = {"img_res": FIT_RES, "intrinsics": {"0": {
+        "cam_K": cam_K.tolist(), "cam_T": np.eye(4).tolist()}}}
+    split = make_animation_transform(drv["base"], drive_track, calib, "10",
+                                     cam_K, base_frame, "drive")
+    _check(split == fit["split"], f"phase 14: split {split}")
+    with open(split) as fh:
+        fidx = [f["fidx"] for f in json.load(fh)["frames"]]
+    _check(fidx == list(range(FIT_FRAMES)),
+           f"phase 14: the drive split holds frames {fidx}")
+    last = str(FIT_FRAMES - 1)
+    conds = [imread_rgb(os.path.join(drive_track, f, "drive",
+                                     "ortho_front_render_256_baseGama.png"))
+             for f in ("0", last)]
+    _check(conds[0].any() and not np.array_equal(*conds),
+           f"phase 14: drive frames 0 and {last} have the same conditions")
+
+    t0 = time.perf_counter()
+    fs = build_flagship(dev)
+    ckpt = _write_checkpoint(root, fs, np.random.RandomState(DRIVE_SEED))
+    del fs
+    torch.cuda.empty_cache()
+    print(f"[14 drive] video_animation {anim_s:.3f} s a frame (three "
+          f"renders, {n} frames); the drive split written again: frames "
+          f"{fidx[0]} to {fidx[-1]}; a {os.path.getsize(ckpt) / 2**20:.1f} "
+          f"MiB stage-2 checkpoint in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    counters = (M.march_coarse, M.march_fine, M.march_coarse_x,
+                M.march_fine_x)
+    items = [f"{f}_00.png" for f in range(FIT_FRAMES)]
+    pngs, launches = {}, {}
+    for what, flags, nmax in (
+            ("fast gated 16+16", ["--precision", "fast", "--gated",
+                                  "--coarse", "16"], FIT_FRAMES),
+            ("exact blind 64+16", ["--precision", "exact", "--max-frames",
+                                   "1"], 1)):
+        out = os.path.join(root, "drive_" + what.split()[0])
+        for c in counters:
+            c.launches = 0
+        stats = cli.main(["--config", SERVE_CONFIG, "--ckpt", ckpt, "--split",
+                          split, "--savedir", out] + flags)
+        torch.cuda.synchronize()
+        counts = [c.launches for c in counters]
+        fast = what.startswith("fast")
+        _check(stats["frames"] == nmax, f"phase 14 {what}: served {stats}")
+        _check(counts == ([nmax, nmax, 0, 0] if fast else [0, 0, 0, 0]),
+               f"phase 14 {what}: launches {counts} for {nmax} frames")
+        names = sorted(os.listdir(os.path.join(out, "rgb")))
+        _check(names == sorted(items[:nmax]), f"phase 14 {what}: {names}")
+        pngs[what] = {k: imread_rgb(os.path.join(out, "rgb", k))
+                      for k in names}
+        _check(all(v.shape == (SR_OUT, SR_OUT, 3)
+                   for v in pngs[what].values()),
+               f"phase 14 {what}: PNG shapes")
+        if fast:
+            launches = {"march_coarse": counts[0], "march_fine": counts[1]}
+        print(f"[14 drive] cli/reenact.py {what}: {json.dumps(stats)}; "
+              f"launches {counts}", flush=True)
+    fast = pngs["fast gated 16+16"]
+    _check(not np.array_equal(fast[items[0]], fast[items[-1]]),
+           f"phase 14: drive frames 0 and {last} gave the same image")
+    direct, _ = _direct_frame(dev, SERVE_CONFIG, ckpt, split)
+    _check_served(fast[items[0]], direct, f"[14 drive] {items[0]}")
+    return launches
+
+
+def _mv_cameras() -> tuple:
+    """A raw calibration of MV_VIEWS cameras about the head ({cam: {K, R,
+    T}}: f about 2 x 1315 on a MV_RAW_RES^2 frame, turned -0.45 to 0.45
+    rad about y), each view's crop [top, left, resolution, pad], and the
+    intrinsics after the pad, crop and resize to FIT_RES^2, worked out
+    here by hand: [V, 3, 3]."""
+    calib, crop, Ks = {}, {}, []
+    s = FIT_RES / MV_RAW_RES
+    for k, v in enumerate(MV_VIEWS):
+        a = 0.3 * (k - (len(MV_VIEWS) - 1) / 2)
+        fx, fy, cx, cy = 2630.0 + 10 * k, 2630.0 - 6 * k, 540.0 + 4 * k, 552.0
+        top, left = 40 + 4 * k, 44 + 8 * k
+        calib[v] = {"K": [[fx, 0, cx], [0, fy, cy], [0, 0, 1]],
+                    "R": [[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                          [-math.sin(a), 0, math.cos(a)]],
+                    "T": [0.04 * k - 0.06, 0.02, -0.03 * k]}
+        crop[v] = [top, left, MV_RAW_RES, MV_PAD]
+        Ks.append([[fx * s, 0, (cx + MV_PAD - left) * s],
+                   [0, fy * s, (cy + MV_PAD - top) * s], [0, 0, 1]])
+    return calib, crop, np.asarray(Ks, np.float32)
+
+
+def _write_mv_inputs(root: str, inp: dict) -> dict:
+    """4 calibrated views of phase 12's head: the raw calibration,
+    ``crop_param_mv.json``, MV_FRAMES frames and masks a view under
+    ``mv_rgb512/{view}/`` and ``mv_mask512/{view}/``, and each view's
+    landmarks (seeded ground-truth coefficients through the view's camera,
+    plus noise; none for ``MV_NO_FACE``)."""
+    import cv2
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    from havatar_tpu_torch.preprocess import multiview as MV
+    base = os.path.join(root, "mv")
+    calib, crop, Ks = _mv_cameras()
+    Ts = np.tile(np.eye(4, dtype=np.float32), (len(MV_VIEWS), 1, 1))
+    for k, v in enumerate(MV_VIEWS):
+        Ts[k, :3, :3] = calib[v]["R"]
+        Ts[k, :3, 3] = calib[v]["T"]
+    for d in ("lms", f"mv_rgb{FIT_RES}", f"mv_mask{FIT_RES}"):
+        for v in MV_VIEWS:
+            os.makedirs(os.path.join(base, d, v))
+    paths = {"calib": os.path.join(base, "calib_raw.json"),
+             "lms_root": os.path.join(base, "lms")}
+    with open(paths["calib"], "w") as fh:
+        json.dump(calib, fh)
+    with open(os.path.join(base, "crop_param_mv.json"), "w") as fh:
+        json.dump(crop, fh)
+    rng = np.random.RandomState(MV_SEED)
+    model = FV.load_model_dict(inp["model_dict"], inp["exp52"], device="cpu")
+    id_c = rng.randn(FV.ID_DIMS) * 0.2
+    lms_all = np.zeros((MV_FRAMES, len(MV_VIEWS), 478, 2), np.float32)
+    for i in range(MV_FRAMES):
+        c = torch.from_numpy(_gt_coeffs(rng, i, model.exp_dims, id_c))
+        lms = MV.forward_landmarks_views(model, c, torch.from_numpy(Ts),
+                                         torch.from_numpy(Ks)).numpy()
+        lms_all[i] = lms + rng.randn(*lms.shape) * FIT_LM_NOISE_PX
+        for k, v in enumerate(MV_VIEWS):
+            frame, mask = _face_frame(rng, lms_all[i, k])
+            cv2.imwrite(os.path.join(base, f"mv_rgb{FIT_RES}", v, f"{i}.png"),
+                        frame)
+            cv2.imwrite(os.path.join(base, f"mv_mask{FIT_RES}", v,
+                                     f"{i}.png"), mask)
+            if (i, v) != MV_NO_FACE:
+                np.save(os.path.join(paths["lms_root"], v, f"{i}.npy"),
+                        lms_all[i, k])
+    return dict(base=base, Ks=Ks, Ts=Ts, lms=lms_all, **paths)
+
+
+def _mv_errors(model, coeffs, Ks, Ts, lms) -> np.ndarray:
+    """Each view's mean landmark error in pixels at ``coeffs`` [1, D]."""
+    from havatar_tpu_torch.preprocess import multiview as MV
+    dev = model.device
+    with torch.no_grad():
+        p = MV.forward_landmarks_views(
+            model, torch.as_tensor(coeffs, device=dev), torch.from_numpy(
+                Ts).to(dev), torch.from_numpy(Ks).to(dev)).cpu().numpy()
+    return np.linalg.norm(p - lms, axis=-1).mean(-1)
+
+
+def _mv_fit_on(d, inp, mv, frame: int, iters: int, prev_coeffs,
+               views=None):
+    """A later frame's joint fit (``fit_rest``'s settings) from the
+    previous frame's coefficients on device ``d``, over ``views`` (indices;
+    default all). Returns (projected landmarks [V, 478, 2], losses, host
+    seconds)."""
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    from havatar_tpu_torch.preprocess import fitting as FIT
+    from havatar_tpu_torch.preprocess import multiview as MV
+    views = list(range(len(MV_VIEWS))) if views is None else views
+    model = FV.load_model_dict(inp["model_dict"], inp["exp52"], device=d)
+    Ks, Ts = mv["Ks"][views], mv["Ts"][views]
+    fit = MV.make_fit_frame_mv(model, Ks, Ts, FIT.FitConfig(), iters,
+                               first_frame=False, fit_id=False)
+    state = _fit_state(prev_coeffs, model.exp_dims, d)
+    valid = torch.tensor([0.0 if (frame, MV_VIEWS[k]) == MV_NO_FACE else 1.0
+                          for k in views])
+    gt = torch.from_numpy(mv["lms"][frame][views] * valid[:, None, None]
+                          .numpy()).to(d)
+    if d.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state2, losses = fit(state, gt, valid, state.rot, state.trans)
+    lms = MV.forward_landmarks_views(model, FIT.pack(state2),
+                                     torch.from_numpy(Ts).to(d),
+                                     torch.from_numpy(Ks).to(d))
+    lms, losses = lms.detach().cpu(), losses.cpu()
+    return lms, losses, time.perf_counter() - t0
+
+
+def _fit_diff(a, b) -> tuple:
+    """Two ``_mv_fit_on`` results: (landmarks max abs diff in pixels, the
+    last losses' relative difference)."""
+    (la, sa, _), (lb, sb, _) = a, b
+    return (float((la - lb).abs().max()),
+            abs(float(sa[-1]) - float(sb[-1])) / abs(float(sb[-1])))
+
+
+def _phase_multiview(dev, root: str, inp: dict) -> None:
+    """14 (b): ``cli/fit_video_mv.py`` at its defaults on 4 calibrated
+    views of phase 12's head; the calibration, each view's landmark error,
+    a card fit against the CPU, the split; launches an iteration at V = 1
+    and V = 4."""
+    from havatar_tpu_torch.cli import fit_video_mv
+    from havatar_tpu_torch.data.dataset import AvatarDataset
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    from havatar_tpu_torch.preprocess import fitting as FIT
+    from havatar_tpu_torch.utils.cfgnode import CfgNode
+    mv = _write_mv_inputs(root, inp)
+    t0 = time.perf_counter()
+    out = fit_video_mv.main([
+        "--base_dir", mv["base"], "--calib_file", mv["calib"],
+        "--faceverse_path", inp["fv_path"], "--exp52_path",
+        inp["exp52_path"], "--views", *MV_VIEWS, "--lms_root",
+        mv["lms_root"], "--base_zero_frame", "0"])
+    wall = time.perf_counter() - t0
+    frames = [str(i) for i in range(MV_FRAMES)]
+    _check(out["frames"] == frames, f"phase 14: mv frames {out['frames']}")
+    want_valid = {f: len(MV_VIEWS) - (int(f) == MV_NO_FACE[0])
+                  for f in frames}
+    _check(out["valid_views"] == want_valid,
+           f"phase 14: valid views {out['valid_views']}")
+    with open(os.path.join(mv["base"], f"calib_{FIT_RES}.json")) as fh:
+        calib = json.load(fh)
+    Ks = np.stack([np.asarray(calib["intrinsics"][v]["cam_K"]).reshape(3, 3)
+                   for v in MV_VIEWS])
+    kerr = float(np.abs(Ks - mv["Ks"]).max())
+    print(f"[14 multiview] calib_{FIT_RES}.json: camera 0 K "
+          f"{Ks[0].tolist()}; max diff from the adjustment "
+          f"worked out by hand, all cameras: {kerr:.3e}", flush=True)
+    _check(kerr <= 1e-3, "phase 14: calib_512.json is not the adjustment")
+
+    model = FV.load_model_dict(inp["model_dict"], inp["exp52"], device=dev)
+    start = FIT.pack(FIT.init_fit_state(model.exp_dims, device=dev))
+    track = os.path.join(mv["base"], "tracking")
+    first = _mv_errors(model, start, mv["Ks"], mv["Ts"], mv["lms"][0])
+    errs = [_mv_errors(model, np.load(os.path.join(track, f, "coeffs.npy"))
+                       [None], mv["Ks"], mv["Ts"], mv["lms"][int(f)])
+            for f in frames]
+    worst = [max(e for k, e in enumerate(errs[i])
+                 if (i, MV_VIEWS[k]) != MV_NO_FACE)
+             for i in range(1, MV_FRAMES)]
+    def px(xs):
+        return ", ".join(f"{float(x):.4f}" for x in xs)
+
+    print(f"[14 multiview] frame 0 mean landmark error a view, px: first "
+          f"iteration {px(first)} -> fitted {px(errs[0])}; frames 1 to "
+          f"{MV_FRAMES - 1}, worst valid view: {px(worst)}", flush=True)
+    _check(bool((first >= MV_LM_DROP * errs[0]).all()),
+           f"phase 14: frame 0's landmark error fell less than "
+           f"{MV_LM_DROP}x in a view")
+
+    # frame 1's joint fit from frame 0's coefficients, card against CPU.
+    # JAX's joint fit keeps one Adam at 1e-2 to the end (no fine stage), so
+    # it does not settle: over 100 iterations a one-ulp nudge of the start
+    # moves the CPU's own result by 0.02 to 0.6 px. Phase 12's bounds hold
+    # the first MV_SHORT_ITERS iterations; 100 are printed beside the CPU
+    # fit's spread under MV_NUDGES.
+    c0 = np.load(os.path.join(track, "0", "coeffs.npy"))
+    cpu = torch.device("cpu")
+    short = [_mv_fit_on(d, inp, mv, 1, MV_SHORT_ITERS, c0)
+             for d in (dev, cpu)]
+    lerr, lrel = _fit_diff(*short)
+    full = [_mv_fit_on(d, inp, mv, 1, 100, c0) for d in (dev, cpu)]
+    spread = [_fit_diff(_mv_fit_on(cpu, inp, mv, 1, 100,
+                                   c0 * np.float32(1 + e)), full[1])
+              for e in MV_NUDGES]
+    px100, rel100 = _fit_diff(*full)
+    print(f"[14 multiview] frame 1's joint fit, card vs CPU: "
+          f"{MV_SHORT_ITERS} iterations landmarks max err {lerr:.4f} px, "
+          f"loss rel {lrel:.2e}; 100 iterations {px100:.4f} px, loss "
+          f"{float(full[0][1][-1]):.6g} vs {float(full[1][1][-1]):.6g} (rel "
+          f"{rel100:.2e}), {full[0][2]:.2f} s on the card, {full[1][2]:.2f} "
+          f"s on the CPU; the CPU's 100 iterations from a start nudged by "
+          f"{list(MV_NUDGES)} of itself: "
+          + ", ".join(f"{p:.4f} px / {r:.2e}" for p, r in spread), flush=True)
+    _check(lerr <= FIT_LM_ATOL_PX and lrel <= FIT_LOSS_RTOL,
+           "phase 14: the card's joint fit is not the CPU's")
+
+    cfg = CfgNode({"experiment": {"patch_rgb": False},
+                   "dataset": {"near": -1.6, "far": 1.0, "length": 1.0,
+                               "num_random_rays": 1024,
+                               "cond_render_res": 256}})
+    ds = AvatarDataset(out["split"], "train", cfg)
+    item = ds.load_item(0)
+    _check(len(ds) == MV_FRAMES * len(MV_VIEWS)
+           and item["mv_rays"].shape == (1024, 12)
+           and bool(np.isfinite(item["mv_rays"]).all()),
+           "phase 14: mv_v31_all.json does not load")
+
+    n = FIT_PROFILE_ITERS
+    prof = {}
+    for V in (1, len(MV_VIEWS)):
+        views = list(range(V))
+        _, _, secs = _mv_fit_on(dev, inp, mv, 1, n, c0, views)
+        launches, busy = _profile_iters(
+            lambda: _mv_fit_on(dev, inp, mv, 1, n, c0, views), n)
+        prof[V] = (launches, busy, secs * 1e3 / n)
+    later = [out["fit_s"][f] for f in frames[1:]]
+    print(f"[14 multiview] cli/fit_video_mv.py at its defaults ({FIT_RES}^2, "
+          f"{len(MV_VIEWS)} views, 2000 + 100 iterations): {wall:.2f} s; "
+          f"fit frame 0 {out['fit_s']['0']:.3f} s, a later frame "
+          f"{np.median(later):.3f} s (median); three renders a frame "
+          f"{np.median(list(out['render_s'].values())):.3f} s; split "
+          f"{len(ds)} items, finite rays", flush=True)
+    print("[14 multiview] joint fit an iteration (torch.profiler, "
+          f"{n} iterations): " + "; ".join(
+              f"V = {V}: {la:.1f} launches, device busy {b:.4f} ms of "
+              f"{h:.4f} ms (idle share {1 - b / h:.4f})"
+              for V, (la, b, h) in prof.items()), flush=True)
+    _check(prof[len(MV_VIEWS)][0] <= MV_V_LAUNCH_RATIO * prof[1][0],
+           "phase 14: the joint fit's launches grow with the views")
+
+
+def _write_batch_inputs(root: str, inp: dict) -> dict:
+    """BATCH_VIDEOS seeded videos of BATCH_FRAMES FIT_RES^2 frames under
+    ``videos/{name}/{i}.png`` and their landmarks under ``lms/{name}/``
+    (the model's projection at the CLI's camera, plus noise; none for
+    ``BATCH_NO_FACE``)."""
+    import cv2
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    rng = np.random.RandomState(BATCH_SEED)
+    model = FV.load_model_dict(inp["model_dict"], inp["exp52"], device="cpu")
+    f = BATCH_FOCAL * FIT_RES / 2
+    intr = (f, f, FIT_RES / 2, FIT_RES / 2)
+    paths = {"videos": os.path.join(root, "videos"),
+             "lms": os.path.join(root, "lms")}
+    for v in range(BATCH_VIDEOS):
+        name = f"vid{v}"
+        for d in paths.values():
+            os.makedirs(os.path.join(d, name))
+        id_c = rng.randn(FV.ID_DIMS) * 0.2
+        for i in range(BATCH_FRAMES):
+            c = _gt_coeffs(rng, i, model.exp_dims, id_c)
+            lms, _ = FV.forward_landmarks(model, torch.from_numpy(c), *intr)
+            lms = (lms[0].numpy() + rng.randn(478, 2) * FIT_LM_NOISE_PX
+                   ).astype(np.float32)
+            frame, _ = _face_frame(rng, lms)
+            cv2.imwrite(os.path.join(paths["videos"], name, f"{i}.png"), frame)
+            if (name, i) != BATCH_NO_FACE:
+                np.save(os.path.join(paths["lms"], name, f"{i}.npy"), lms)
+    return paths
+
+
+def _tree(root: str) -> dict:
+    """Every file under ``root`` by relative path: arrays for .npy/.npz,
+    bytes otherwise."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            p = os.path.join(d, f)
+            if f.endswith(".npy"):
+                out[os.path.relpath(p, root)] = np.load(p)
+            elif f.endswith(".npz"):
+                with np.load(p) as z:
+                    out[os.path.relpath(p, root)] = {k: z[k] for k in z.files}
+            else:
+                with open(p, "rb") as fh:
+                    out[os.path.relpath(p, root)] = fh.read()
+    return out
+
+
+def _same_tree(a: dict, b: dict) -> bool:
+    def same(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(
+                np.array_equal(x[k], y[k]) for k in x)
+        if isinstance(x, np.ndarray):
+            return np.array_equal(x, y)
+        return x == y
+    return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+
+
+def _phase_batch(dev, root: str, inp: dict) -> None:
+    """14 (c): ``cli/fit_videos_batch.py`` at its defaults (500 + 100
+    iterations, focal 4.2647) with ``--save_fvmask`` and
+    ``--save_lmscounter`` at 1 and 4 IO workers into two save roots, which
+    must be equal file for file, bit for bit; then again on a finished
+    root, which must fit nothing."""
+    from havatar_tpu_torch.cli import fit_videos_batch
+    from havatar_tpu_torch.preprocess import faceverse as FV
+    from havatar_tpu_torch.preprocess import fitting as FIT
+    paths = _write_batch_inputs(os.path.join(root, "batch"), inp)
+    argv = ["--videos_root", paths["videos"], "--lms_root", paths["lms"],
+            "--faceverse_path", inp["fv_path"], "--exp52_path",
+            inp["exp52_path"], "--save_fvmask", "fvmask",
+            "--save_lmscounter", "lmscounter"]
+    good = [f"vid{v}" for v in range(BATCH_VIDEOS)
+            if f"vid{v}" != BATCH_NO_FACE[0]]
+    runs = {}
+    for w in BATCH_WORKERS:
+        save = os.path.join(root, "batch", f"out_w{w}")
+        stats = fit_videos_batch.main(argv + ["--save_root", save,
+                                              "--io_workers", str(w)])
+        _check(stats["fitted"] == good
+               and stats["skipped"] == [BATCH_NO_FACE[0]]
+               and stats["frames"] == len(good) * BATCH_FRAMES,
+               f"phase 14: batch run at {w} workers: {stats}")
+        _check(os.path.exists(os.path.join(save, BATCH_NO_FACE[0], "skip")),
+               "phase 14: no skip marker")
+        with open(stats["no_face_log"]) as fh:
+            log = json.load(fh)
+        _check(log == {f"{BATCH_NO_FACE[0]}/{BATCH_NO_FACE[1]}.png":
+                       "no_face"}, f"phase 14: no_face_log.json {log}")
+        runs[w] = (save, stats)
+    trees = {w: _tree(s) for w, (s, _) in runs.items()}
+    a, b = (trees[w] for w in BATCH_WORKERS)
+    n_coeffs = sum(k.endswith("coeffs.npy") for k in a)
+    masks = [v for k, v in a.items() if k.startswith(f"{good[0]}/fvmask/")]
+    _check(n_coeffs == len(good) * BATCH_FRAMES and len(masks)
+           == BATCH_FRAMES, f"phase 14: batch outputs {sorted(a)}")
+    same = _same_tree(a, b)
+    print(f"[14 batch] {len(a)} files at {BATCH_WORKERS[0]} and "
+          f"{BATCH_WORKERS[1]} IO workers: bit for bit "
+          f"{'equal' if same else 'DIFFERENT'}", flush=True)
+    _check(same, "phase 14: the batch outputs depend on the IO workers")
+    again = fit_videos_batch.main(argv + ["--save_root", runs[1][0]])
+    _check(again["pending"] == [] and again["fitted"] == [],
+           f"phase 14: a finished root fitted {again['fitted']}")
+
+    model = FV.load_model_dict(inp["model_dict"], inp["exp52"], device=dev)
+    f = BATCH_FOCAL * FIT_RES / 2
+    intr = (f, f, FIT_RES / 2, FIT_RES / 2)
+    n = FIT_PROFILE_ITERS
+    fit = FIT.make_fit_frame(model, intr, FIT.FitConfig(), n,
+                             first_frame=False, fit_id=False)
+    c = torch.from_numpy(a[f"{good[0]}/1/coeffs.npy"][None])
+    gt = torch.from_numpy(np.load(os.path.join(paths["lms"], good[0],
+                                               "2.npy"))).to(dev)
+
+    def run():
+        state = _fit_state(c[0].numpy(), model.exp_dims, dev)
+        fit(state, gt, state.rot, state.trans)
+
+    _, busy = _profile_iters(run, n)
+    iters = len(good) * (BATCH_ITERS[0] + (BATCH_FRAMES - 1) * BATCH_ITERS[1])
+    for w, (_, st) in runs.items():
+        frames = st["frames"]
+        print(f"[14 batch] cli/fit_videos_batch.py at its defaults "
+              f"({FIT_RES}^2, {BATCH_ITERS[0]} + {BATCH_ITERS[1]} "
+              f"iterations), {w} IO workers: {st['wall_s']:.2f} s for "
+              f"{frames} frames of {len(good)} videos, "
+              f"{st['wall_s'] / frames:.3f} s a frame, "
+              f"{3600 * frames / st['wall_s']:.0f} frames/hour; idle share "
+              f"{1 - busy * iters / 1e3 / st['wall_s']:.4f} (device busy "
+              f"{busy:.4f} ms an iteration from {n} profiled iterations, "
+              f"times {iters} iterations)", flush=True)
+
+
+def phase_reenact_and_fit(dev, root: str, inp: dict) -> dict:
+    """Phase 14 (see the module docstring), in ``root`` beside phase 12's
+    inputs ``inp``. Returns the quad march kernels' launches over the
+    drive split's fast run."""
+    t0 = time.perf_counter()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches = _phase_cross(dev, root, inp)
+    torch.cuda.empty_cache()
+    _phase_multiview(dev, root, inp)
+    _phase_batch(dev, root, inp)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+    print(f"[14 reenact+fit] {smi}: phase {time.perf_counter() - t0:.1f} s; "
+          f"peak device memory {peak:.3f} GiB above the "
+          f"{live / 2 ** 30:.3f} GiB live before it", flush=True)
+    return launches
+
+
+def phase_kernel_line(captured, launches, serve_launches,
+                      drive_launches) -> list:
     """Each kernel on the inputs the frame gave it: error against its twin,
     its time and the twin's (CUDA events), and its bound. ``launches`` is
     the count over the five frames of the kernel's own configuration;
-    ``launches_serve`` the count over the CLI's fast runs (quad kernels)."""
+    ``launches_serve`` the count over the CLI's fast runs of phase 6 and
+    ``launches_drive`` over phase 14's fast run of the drive split (quad
+    kernels)."""
     from havatar_tpu_torch.ops import march as M
     rows = []
     for name, kernel, plain, compare, bound_fn, replaces in (
@@ -3409,6 +4013,7 @@ def phase_kernel_line(captured, launches, serve_launches) -> list:
             "launches": launches[name],
             "launches_per_frame": launches[name] / N_FRAMES,
             "launches_serve": serve_launches.get(name, 0),
+            "launches_drive": drive_launches.get(name, 0),
             "max_abs_err": max(v for k, v in errs.items() if k != "keeps"),
             "keeps_max_abs_err": errs.get("keeps"),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -3483,8 +4088,11 @@ def main() -> int:
         inp = phase_preprocess(dev, root)
         torch.cuda.empty_cache()
         phase_networks(dev, root, inp)
+        torch.cuda.empty_cache()
+        drive_launches = phase_reenact_and_fit(dev, root, inp)
     rows = phase_kernel_line({**captured, **captured_x},
-                             {**launches, **launches_x}, serve_launches)
+                             {**launches, **launches_x}, serve_launches,
+                             drive_launches)
     rows += mlp_kernel_rows(train_captured, train_counts, bf16_counts)
     rows += quad_kernel_rows(hd_captured, hd_counts, hd_bf16_counts)
     rows += field_rows

@@ -44,8 +44,7 @@ from havatar_tpu_torch.preprocess import fitting, landmarks, matting, video
 from havatar_tpu_torch.preprocess.pipeline import (
     make_animation_transform,
     make_transform,
-    render_condition_set,
-    save_frame_assets,
+    save_fitted_frame,
 )
 from havatar_tpu_torch.preprocess.rasterizer import (
     DEFAULT_CHUNK,
@@ -195,22 +194,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         state, losses = fit(state, torch.from_numpy(lms).to(dev), prev_rot,
                             prev_trans)
         prev_rot, prev_trans = state.rot, state.trans
-        coeffs_t = fitting.pack(state)
-        coeffs = coeffs_t[0].cpu().numpy()
         losses = losses.cpu()
         t1 = time.perf_counter()
-        head_T = fitting.head_transform_matrix(state, no_scale=True)
-        extr_T = fitting.head_transform_matrix(state, no_scale=False)
-        save_frame_assets(save_dir, fid, coeffs, head_T=head_T.cpu().numpy(),
-                          extr=extr_T.cpu().numpy(),
-                          transformation=extr_T.cpu().numpy())
-
-        # condition renders (drive mode transplants expressions later)
-        id_c, exp_c, tex_c, _, _, _, eye_c, _ = fv.split_coeffs(
-            coeffs_t, model.exp_dims)
-        vs = fv.get_vs(model, id_c, exp_c, eye_c)[0]
-        colors = fv.get_color(model, tex_c)[0]
-        render_condition_set(model, vs, colors, out_dir)
+        # the files and condition renders (drive mode transplants
+        # expressions later)
+        save_fitted_frame(model, fitting.pack(state), save_dir, fid)
         t2 = time.perf_counter()
         out["frames"].append(fid)
         out["fit_s"][fid], out["render_s"][fid] = t1 - t0, t2 - t1

@@ -20,7 +20,7 @@ elementwise launches. The update is optax's, written out:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -119,7 +119,7 @@ class Adam:
         theta.add_(mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS) * (-self.lr))
 
 
-def _trainable_names(fit_id: bool, fit_scale: bool) -> Tuple[str, ...]:
+def trainable_names(fit_id: bool, fit_scale: bool) -> Tuple[str, ...]:
     names = ("exp_c", "eye", "rot", "trans")
     if fit_id:
         names += ("id_c",) + (("scale",) if fit_scale else ())
@@ -150,6 +150,52 @@ def fit_loss(model: fv.FaceVerseModel, s: FitState, gt_lms: torch.Tensor,
     return loss
 
 
+FINE_ADAM = (1e-3, 0.5, 0.9)       # a later frame's optimizer after 60%
+
+
+def fit_loop(state: FitState, names: Sequence[str],
+             loss_fn: Callable[[FitState], torch.Tensor], num_iters: int,
+             adam: Tuple[float, float, float],
+             fine: Optional[Tuple[float, float, float]] = None,
+             fine_start: int = 0) -> Tuple[FitState, torch.Tensor]:
+    """Adam (``adam``: lr, b1, b2) on the trainables ``names`` of ``state``
+    against ``loss_fn``, with negative expressions clamped to 0 after each
+    update (the reference's :232-233); with ``fine``, a second Adam from
+    zero moments takes the iterations after ``fine_start``. Returns (state,
+    losses [num_iters]): losses[i] is iteration i's loss before its
+    update."""
+    parts = [getattr(state, n) for n in names]
+    shapes = [p.shape for p in parts]
+    sizes = [p.numel() for p in parts]
+    exp_lo = sum(sizes[:list(names).index("exp_c")])
+    exp_hi = exp_lo + state.exp_c.numel()
+    theta = torch.cat([p.reshape(-1) for p in parts]).float()
+    coarse = Adam(*adam, theta)
+    fine_opt = Adam(*fine, theta) if fine is not None else None
+    losses = torch.empty(num_iters, device=theta.device)
+
+    def unflatten(vec) -> Dict[str, torch.Tensor]:
+        return {n: v.view(shp) for n, v, shp
+                in zip(names, vec.split(sizes), shapes)}
+
+    for i in range(num_iters):
+        theta.requires_grad_(True)
+        loss = loss_fn(state._replace(**unflatten(theta)))
+        g, = torch.autograd.grad(loss, theta)
+        theta = theta.detach()
+        losses[i] = loss.detach()
+        opt = fine_opt if (fine_opt is not None and i > fine_start) else coarse
+        opt.step(theta, g)
+        theta[exp_lo:exp_hi].clamp_(min=0.0)
+    return state._replace(**unflatten(theta)), losses
+
+
+def first_adam(first_frame: bool) -> Tuple[float, float, float]:
+    """(lr, b1, b2) of the fit's first optimizer: frame 0's, or a later
+    frame's."""
+    return (1e-1, 0.8, 0.95) if first_frame else (1e-2, 0.5, 0.9)
+
+
 def make_fit_frame(model: fv.FaceVerseModel, intr4, cfg: FitConfig,
                    num_iters: int, first_frame: bool, fit_id: bool,
                    fit_scale: bool = False) -> Callable:
@@ -161,37 +207,18 @@ def make_fit_frame(model: fv.FaceVerseModel, intr4, cfg: FitConfig,
     no fine optimizer, no smoothness term); the trainables are (exp, eye,
     rot, trans) plus (id [, scale]) when ``fit_id``."""
     weights = landmark_weights(model.device)
-    lr0, b1_0, b2_0 = (1e-1, 0.8, 0.95) if first_frame else (1e-2, 0.5, 0.9)
-    fine_start = int(num_iters * 0.6)
-    names = _trainable_names(fit_id, fit_scale)
+    names = trainable_names(fit_id, fit_scale)
 
     def fit(state: FitState, gt_lms: torch.Tensor, prev_rot: torch.Tensor,
             prev_trans: torch.Tensor) -> Tuple[FitState, torch.Tensor]:
-        parts = [getattr(state, n) for n in names]
-        shapes = [p.shape for p in parts]
-        sizes = [p.numel() for p in parts]
-        exp_n = sizes[0]                    # exp_c is the first part
-        theta = torch.cat([p.reshape(-1) for p in parts]).float()
-        coarse = Adam(lr0, b1_0, b2_0, theta)
-        fine = Adam(1e-3, 0.5, 0.9, theta)
-        losses = torch.empty(num_iters, device=theta.device)
-
-        def unflatten(vec) -> Dict[str, torch.Tensor]:
-            return {n: v.view(shp) for n, v, shp
-                    in zip(names, vec.split(sizes), shapes)}
-
-        for i in range(num_iters):
-            theta.requires_grad_(True)
-            s = state._replace(**unflatten(theta))
-            loss = fit_loss(model, s, gt_lms, prev_rot, prev_trans, cfg,
+        def loss_fn(s: FitState) -> torch.Tensor:
+            return fit_loss(model, s, gt_lms, prev_rot, prev_trans, cfg,
                             intr4, weights, first_frame)
-            g, = torch.autograd.grad(loss, theta)
-            theta = theta.detach()
-            losses[i] = loss.detach()
-            opt = fine if (not first_frame and i > fine_start) else coarse
-            opt.step(theta, g)
-            theta[:exp_n].clamp_(min=0.0)   # the reference's :232-233
-        return state._replace(**unflatten(theta)), losses
+
+        return fit_loop(state, names, loss_fn, num_iters,
+                        first_adam(first_frame),
+                        None if first_frame else FINE_ADAM,
+                        int(num_iters * 0.6))
 
     return fit
 

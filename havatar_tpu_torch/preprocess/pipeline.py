@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from havatar_tpu_torch.device import DeviceLike, resolve_device
 from havatar_tpu_torch.ops.boxwarp import BoxWarp
 from havatar_tpu_torch.preprocess import faceverse as fv
 from havatar_tpu_torch.preprocess.rasterizer import render_ortho_condition
@@ -31,9 +32,11 @@ ORTHO_K = (-1.0, -1.0, 0.0, 0.0)
 CANONICAL_BOUNDS = ((-1.5, 1.5), (-1.6, 1.4), (-1.6, 1.2))
 
 
-def ortho_view_rotations(device=None) -> Dict[str, torch.Tensor]:
+def ortho_view_rotations(device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """The three views' rotations, transposed for right-multiplication (as
-    ``faceverse.euler_rotation``'s are)."""
+    ``faceverse.euler_rotation``'s are), on ``device`` (default: the CUDA
+    device; raises without one)."""
+    device = resolve_device(device)
 
     def roty(deg):
         a = np.deg2rad(deg)
@@ -85,6 +88,26 @@ def save_frame_assets(save_dir: str, frame_name: str, coeffs: np.ndarray,
              self_rotation=(np.asarray(self_rotation, np.float32)
                             if self_rotation is not None else np.eye(3, dtype=np.float32)))
     open(os.path.join(d, "finish"), "w").close()
+
+
+def save_fitted_frame(model: fv.FaceVerseModel, coeffs: torch.Tensor,
+                      save_dir: str, frame_name: str,
+                      render: bool = True) -> None:
+    """A fitted frame's files from its [1, D] coefficients:
+    ``save_frame_assets`` with the head transform P T without and with the
+    scale (make_rotMat, fit_video.py:269-292) and, with ``render``, the
+    three ortho condition renders (fit_video.py:316-339)."""
+    id_c, exp_c, tex_c, angles, _, trans, eye_c, scale = fv.split_coeffs(
+        coeffs, model.exp_dims)
+    head_T = fv.make_rot_mat(angles, trans, scale, no_scale=True)
+    extr = fv.make_rot_mat(angles, trans, scale, no_scale=False).cpu().numpy()
+    save_frame_assets(save_dir, frame_name, coeffs[0].cpu().numpy(),
+                      head_T=head_T.cpu().numpy(), extr=extr,
+                      transformation=extr)
+    if render:
+        render_condition_set(model, fv.get_vs(model, id_c, exp_c, eye_c)[0],
+                             fv.get_color(model, tex_c)[0],
+                             os.path.join(save_dir, frame_name))
 
 
 def rotate_by_theta_along_y(theta: float) -> np.ndarray:

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from havatar_tpu_torch.device import resolve_device
+
 # VGG16 conv plan: (out_channels, layers_per_block), a max-pool between blocks
 _VGG_PLAN = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
 
@@ -109,8 +111,10 @@ def save_lpips_file(params: Params, path: str) -> None:
 
 def load_lpips_file(path: str, device=None) -> Optional[Params]:
     """Converted LPIPS weights (the ``.npz`` of ``save_lpips_file``) as
-    tensors on ``device``, or None if the file is absent: callers gate the
-    perceptual term on this."""
+    tensors on ``device`` (default: the CUDA device; raises without one),
+    or None if the file is absent: callers gate the perceptual term on
+    this."""
+    device = resolve_device(device)
     if not path or not os.path.exists(path):
         return None
     data = np.load(path, allow_pickle=True)

@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from havatar_tpu_torch.device import resolve_device
 from havatar_tpu_torch.models.renderer import (
     AvatarRenderer,
     RenderNoise,
@@ -98,7 +99,9 @@ def learning_rate(cfg, step: int) -> float:
 def init_state(cfg, num_frames: int, device=None,
                renderer: Optional[AvatarRenderer] = None) -> TrainState:
     """A fresh run: the config's renderer (or ``renderer``), zero latent
-    codes and an optimizer over both."""
+    codes and an optimizer over both, on ``device`` (default: the CUDA
+    device; raises without one)."""
+    device = resolve_device(device)
     renderer = (build_renderer(cfg) if renderer is None else renderer)
     renderer = renderer.to(device).train()
     latent_codes = torch.nn.Parameter(torch.zeros(

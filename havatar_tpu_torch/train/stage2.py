@@ -42,6 +42,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from havatar_tpu_torch.device import resolve_device
 from havatar_tpu_torch.models.discriminator import WaveletDiscriminator
 from havatar_tpu_torch.models.generators import StyleUNetSR
 from havatar_tpu_torch.models.renderer import (
@@ -125,7 +126,9 @@ def make_optimizers(cfg, nerf_params, g_params, d_params):
 def init_state(cfg, num_frames: int, device=None,
                models: Optional[Tuple] = None) -> Stage2State:
     """A fresh run: the config's models (or ``models``), zero latent codes,
-    g_ema a copy of G, the three optimizers."""
+    g_ema a copy of G, the three optimizers, on ``device`` (default: the
+    CUDA device; raises without one)."""
+    device = resolve_device(device)
     renderer, generator, discriminator = models or build_models(cfg)
     renderer = renderer.to(device).train()
     generator = generator.to(device).train()

@@ -371,7 +371,7 @@ def test_depth2normal_and_condition_render_match_jax():
            atol=1e-5)
     verts, faces = _sphere()
     colors = (rng.rand(len(verts), 3) * 300 - 20).astype(np.float32)
-    rot = TP.ortho_view_rotations()["left"]
+    rot = TP.ortho_view_rotations("cpu")["left"]
     np.testing.assert_array_equal(
         rot.numpy(), np.asarray(JP.ortho_view_rotations()["left"]))
     img_t, n_t = TRAS.render_ortho_condition(_t(verts), torch.from_numpy(faces),

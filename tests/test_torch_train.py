@@ -401,10 +401,10 @@ def test_lpips_matches_jax_with_carried_weights(tmp_path):
 
     path = str(tmp_path / "lpips.npz")
     JP.save_lpips_file(jp, path)
-    loaded = TP.load_lpips_file(path)
+    loaded = TP.load_lpips_file(path, device="cpu")
     np.testing.assert_allclose(float(TP.lpips_loss(loaded, _t(a), _t(b))),
                                got, rtol=1e-6)
-    assert TP.load_lpips_file(str(tmp_path / "absent.npz")) is None
+    assert TP.load_lpips_file(str(tmp_path / "absent.npz"), "cpu") is None
     path2 = str(tmp_path / "lpips_port.npz")
     TP.save_lpips_file(tp, path2)
     back = JP.load_lpips_file(path2)
