@@ -192,6 +192,25 @@ with a non-zero exit at the first failure:
    device memory, beside the card's name and power limit. The ``kernels``
    line's quad march rows carry the drive run's launches
    (``launches_drive``).
+15. multi-GPU on ``torch.distributed`` (run after phase 9, on phase 8's
+   set; ``havatar_tpu_torch/parallel/``, ``infer/serving.py``). The card is
+   one H100, so: (a) an NCCL process group of one rank in this process:
+   the flagship's ``make_sharded_frame_fn`` against its
+   ``make_reenact_fn`` on phase 4's frame 0, equal in uint8 (0 of 255),
+   each one's ms a frame and the all-gather's ms; (b) two spawned ranks on
+   ``gloo`` sharing the card (cuDNN deterministic): the flagship built on
+   the mesh, each rank marching 8192 rays, five frames with the march
+   kernels once a frame on each rank (``launches_sharded``), frame 0
+   within 1 of 255 of the one-process frame (the count of pixels that
+   differ printed), two frames through ``make_frame_parallel_fn`` against
+   one-process frames, the ms a frame and the all-gather's; (c) on the same
+   ranks, one stage-1 step at full width (2 x 4096 rays, 64 + 16, the fused
+   chain) split on the rays and then on the frames, and one stage-2 G step
+   (quad op, 2 items, 128^2) split on the rays, each with averaged raw
+   gradients held against the one-process step on the same draws and fine
+   samples, at phases 8's and 9's bounds. It prints the phase's seconds,
+   the peak device memory a rank and the card's name and power limit. No
+   speed is claimed: two ranks share one card.
 
 The last line is ``{"ok": true, "device": {...}}``. Comparisons run with
 TF32 off for matmuls and cuDNN, so the twins' float32 products are full
@@ -3973,6 +3992,425 @@ def phase_reenact_and_fit(dev, root: str, inp: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: multi-GPU on torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 2                   # gloo ranks sharing the card in (b), (c)
+MESH_FRAME_MAX_DIFF = 1          # of 255: a sharded frame vs one process's
+MESH_TIMEOUT_S = 600             # the process group's and the spawn's
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _uint8(img: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(img.float() * 255.0, 0.0, 255.0).to(torch.uint8)
+
+
+def _frame_diff(got, want, where: str) -> int:
+    """Pixels of two frames that differ in uint8; fails beyond
+    MESH_FRAME_MAX_DIFF of 255."""
+    a, b = _uint8(got).int(), _uint8(want).int()
+    worst = int((a - b).abs().max())
+    _check(worst <= MESH_FRAME_MAX_DIFF,
+           f"{where}: {worst} of 255 from one process's frame")
+    return int((a != b).any(-1).sum())
+
+
+def _mesh_world1(dev) -> dict:
+    """15 (a): an NCCL process group of one rank in this process; the
+    flagship's ``make_sharded_frame_fn`` against its ``make_reenact_fn`` on
+    phase 4's frame 0, equal in uint8; each one's ms a frame, and the ms of
+    the all-gather's collective on the frame's [1, 16384, 67] rows."""
+    from havatar_tpu_torch.infer.reenact import build_flagship
+    from havatar_tpu_torch.infer.serving import make_sharded_frame_fn
+    from havatar_tpu_torch.parallel import comm, make_mesh
+    import datetime
+    import torch.distributed as dist
+    comm.initialize(dev, init_method=f"tcp://localhost:{_free_port()}",
+                    rank=0, world_size=1,
+                    timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        _check(dist.get_backend() == "nccl",
+               f"15 (a): backend {dist.get_backend()}")
+        mesh = make_mesh(("data",), dev)
+        fs = build_flagship(device=dev, seed=0)
+        sharded = make_sharded_frame_fn(
+            mesh, fs.renderer, fs.generator, num_coarse=S_COARSE,
+            num_fine=S_FINE, gated=True)
+        x = _frame_inputs(fs.inputs, 0)
+        with deterministic_convs():
+            want, got = fs.frame_fn(**x), sharded(**x)
+        n_diff = int((_uint8(got) != _uint8(want)).any(-1).sum())
+        _check(n_diff == 0, f"15 (a): {n_diff} pixels differ at world 1")
+        bare_ms = _time_ms(lambda: fs.frame_fn(**x), iters=10)
+        mesh_ms = _time_ms(lambda: sharded(**x), iters=10)
+        rows = torch.rand(1, R_FRAME, 3 + C, device=dev)
+        gather_ms = _time_ms(
+            lambda: comm._AllGather.apply(rows, 1, mesh.get_group()))
+    finally:
+        comm.shutdown()
+    print(f"[15 mesh] (a) NCCL, world 1: the sharded frame equals "
+          f"make_reenact_fn's (0 of {SR_OUT * SR_OUT} pixels differ); "
+          f"{mesh_ms:.3f} ms a frame against {bare_ms:.3f} bare; the "
+          f"all-gather of [1, {R_FRAME}, {3 + C}] rows {gather_ms:.4f} ms",
+          flush=True)
+    return {"mesh_ms": mesh_ms, "bare_ms": bare_ms, "gather_ms": gather_ms}
+
+
+def _replayed(record: list, rank_axis: int, mesh):
+    """The fine samples a sharded step drew (``record``: each sample_pdf
+    output of this rank, [B * R_local, n] or [B_local * R, n]), gathered to
+    the whole batch's in call order: what a one-process step replays."""
+    from havatar_tpu_torch.parallel import comm
+    out = []
+    for s, (B, R) in record:
+        part = s.reshape(B, R, -1)
+        out.append(comm.all_gather(part, rank_axis, mesh.get_group())
+                   .reshape(-1, s.shape[-1]))
+    return out
+
+
+def _rank_frames(dev, rank: int, world: int) -> dict:
+    """15 (b) on one rank: the flagship built on the mesh (its 8192 rays),
+    phase 4's five frames (the march kernels once a frame each, counted),
+    rank 0's frame against the one-process frame, two frames through
+    ``make_frame_parallel_fn`` against one-process frames, and the times."""
+    from havatar_tpu_torch.infer.reenact import (build_flagship,
+                                                 flagship_rays,
+                                                 make_reenact_fn)
+    from havatar_tpu_torch.infer.serving import (make_frame_parallel_fn,
+                                                 place_batch_inputs)
+    from havatar_tpu_torch.ops import march as M
+    from havatar_tpu_torch.parallel import comm, make_mesh
+    mesh = make_mesh(("data",), dev)
+    fs = build_flagship(device=dev, seed=0, mesh=mesh)
+    _check(tuple(fs.inputs["rays"].shape) == (1, R_FRAME // world, 8),
+           f"15 (b): rank {rank}'s rays {tuple(fs.inputs['rays'].shape)}")
+    march = dict(num_coarse=S_COARSE, num_fine=S_FINE, gated=True,
+                 to_uint8=False)
+    single = make_reenact_fn(fs.renderer, fs.generator, **march)
+    whole = {**fs.inputs, "bg": torch.ones(1, R_FRAME, 3, device=dev),
+             "rays": torch.from_numpy(flagship_rays(
+                 fs.renderer.render_size)).to(dev)}
+    out = {}
+    with deterministic_convs():
+        M.march_coarse.launches = M.march_fine.launches = 0
+        frames = [fs.frame_fn(**_frame_inputs(fs.inputs, i))
+                  for i in range(N_FRAMES)]
+        torch.cuda.synchronize()
+        out["launches"] = {"march_coarse": M.march_coarse.launches,
+                           "march_fine": M.march_fine.launches}
+        _check(out["launches"] == {"march_coarse": N_FRAMES,
+                                   "march_fine": N_FRAMES},
+               f"15 (b): rank {rank}'s launches {out['launches']}")
+        for i, img in enumerate(frames):
+            _check(tuple(img.shape) == (1, SR_OUT, SR_OUT, 3)
+                   and bool(torch.isfinite(img).all()),
+                   f"15 (b): frame {i} on rank {rank}")
+        out["pixels_differ"] = _frame_diff(
+            frames[0], single(**_frame_inputs(whole, 0)),
+            f"15 (b): rank {rank}'s sharded frame 0")
+        two = [_frame_inputs(whole, i) for i in range(world)]
+        names = ("rays", "bg", "latent", "inv_head_T", "front", "left",
+                 "right")
+        batched = [torch.cat([x[k] for x in two]) for k in names]
+        local = dict(zip(names, place_batch_inputs(mesh, batched, [])),
+                     fixed_volume=fs.inputs["fixed_volume"],
+                     style=fs.inputs["style"])
+        parallel = make_frame_parallel_fn(mesh, fs.renderer, fs.generator,
+                                          **march)(**local)
+        out["parallel_pixels_differ"] = _frame_diff(
+            parallel, single(**two[rank]),
+            f"15 (b): rank {rank}'s frame-parallel frame")
+    x = _frame_inputs(fs.inputs, 0)
+    out["frame_ms"] = _time_ms(lambda: fs.frame_fn(**x), iters=10)
+    rows = torch.rand(1, R_FRAME // world, 3 + C, device=dev)
+    out["gather_ms"] = _time_ms(
+        lambda: comm.all_gather(rows, 1, mesh.get_group()))
+    return out
+
+
+def _rank_stage1(dev, rank: int, world: int, data: str) -> dict:
+    """15 (c), stage 1, on one rank: a fresh state (seed 11) of the
+    built-in config with the fused dense chain, phase 8's first batch of
+    2 x 4096 rays and seeded draws of it; the loss and backward on this
+    rank's block, the rays split and then the frames, gradients averaged;
+    rank 0 then runs the one-process step on the whole batch with the
+    sharded step's fine samples and holds the gradients to phase 8's
+    bound."""
+    from havatar_tpu_torch.cli.common import resolve_config
+    from havatar_tpu_torch.cli.train_avatar import TRAIN_KEYS
+    from havatar_tpu_torch.data import AvatarDataset, Loader
+    from havatar_tpu_torch.models import renderer as R
+    from havatar_tpu_torch.ops import mlp as MLP
+    from havatar_tpu_torch.parallel import comm, make_mesh
+    from havatar_tpu_torch.parallel import mesh as PM
+    from havatar_tpu_torch.train import stage1
+    cfg = resolve_config(TRAIN_CONFIG)
+    cfg.models.use_pallas_mlp = True
+    mesh = make_mesh(("data",), dev)
+    torch.manual_seed(11)
+    ds = AvatarDataset(os.path.join(data, "sv_v31_all.json"), "train", cfg,
+                       down_sample=cfg.dataset.down_sample)
+    state = stage1.init_state(cfg, len(ds), dev)
+    host = next(iter(Loader(ds, batch_size=2, seed=3, num_workers=1)))
+    host = {k: np.asarray(host[k]) for k in TRAIN_KEYS}
+    nerf = cfg.nerf.train
+    B, Rn = host["mv_rays"].shape[:2]
+    noise = R.draw_render_noise(
+        torch.Generator(device=dev).manual_seed(12), B, Rn, nerf.num_coarse,
+        nerf.num_fine, bool(nerf.perturb),
+        float(nerf.radiance_field_noise_std), dev)
+    params = list(state.renderer.parameters()) + [state.latent_codes]
+    names = [n for n, _ in state.renderer.named_parameters()] + [
+        "latent_codes"]
+    real_pdf = R.sample_pdf
+
+    def step(batch, loss_fn, pdf, reduce):
+        for p in params:
+            p.grad = None
+        with patched(sample_pdf=pdf):
+            loss, metrics = loss_fn(state.latent_codes, batch, noise)
+            loss.backward()
+        if reduce:
+            comm.all_reduce_grads(params)
+        torch.cuda.synchronize()
+        return float(metrics["loss"].detach()), [
+            None if p.grad is None else p.grad.clone() for p in params]
+
+    out = {}
+    for mode, axis in (("rays", 1), ("frames", 0)):
+        spec = PM.ShardSpec(mesh, axis)
+        local = {k: torch.from_numpy(np.ascontiguousarray(PM.local_shard(
+            v, spec if axis == 0 or k in PM.RAY_AXIS_KEYS else None)))
+            .to(dev) for k, v in host.items()}
+        Bl, Rl = local["mv_rays"].shape[:2]
+        record = []
+
+        def recording(*a, **kw):
+            record.append((real_pdf(*a, **kw), (Bl, Rl)))
+            return record[-1][0]
+
+        n0 = MLP.mlp_forward.launches, MLP.mlp_backward.launches
+        with deterministic_convs():
+            loss_s, grads_s = step(local, stage1.make_loss_fn(
+                state.renderer, cfg, None, mesh, axis == 0), recording, True)
+            n1 = MLP.mlp_forward.launches, MLP.mlp_backward.launches
+            samples = _replayed(record, axis, mesh)
+            res = {"loss": loss_s, "launches": (n1[0] - n0[0],
+                                                n1[1] - n0[1]),
+                   "rows": Bl * Rl}
+            _check(res["launches"] == (2, 2),
+                   f"15 (c) stage 1 {mode}: rank {rank}'s launches "
+                   f"{res['launches']}")
+            if rank == 0:
+                whole = {k: torch.from_numpy(v).to(dev)
+                         for k, v in host.items()}
+                replay = iter(samples)
+                loss_1, grads_1 = step(
+                    whole, stage1.make_loss_fn(state.renderer, cfg),
+                    lambda *a, **kw: next(replay), False)
+                _check(abs(loss_s - loss_1) <= 1e-5 * abs(loss_1),
+                       f"15 (c) stage 1 {mode}: loss {loss_s} vs {loss_1}")
+                res["loss_single"] = loss_1
+                res["worst"] = compare_step_grads(
+                    names, grads_s, grads_1, f"15 (c) stage 1 {mode}")
+        out[mode] = res
+    return out
+
+
+def _rank_stage2(dev, rank: int, world: int, data: str) -> dict:
+    """15 (c), stage 2, on one rank: a fresh state (seed 21) of the
+    built-in HD config with the quad op, optimizers that move nothing (SGD
+    at rate 0), phase 8's first full-image batch of 2 items and seeded
+    draws of it; one G step on this rank's block of the rays; rank 0 then
+    runs the one-process G step on the whole batch with the sharded step's
+    fine samples and holds the gradients to phase 9's bound."""
+    from havatar_tpu_torch.cli.common import BATCH_KEYS, resolve_config
+    from havatar_tpu_torch.cli.train_avatarHD import prepare_batch
+    from havatar_tpu_torch.data import AvatarDataset, Loader
+    from havatar_tpu_torch.models import renderer as R
+    from havatar_tpu_torch.ops import mlp_quad as Q
+    from havatar_tpu_torch.parallel import make_mesh
+    from havatar_tpu_torch.parallel import mesh as PM
+    from havatar_tpu_torch.train import stage2
+    cfg = resolve_config(HD_CONFIG)
+    cfg.models.use_pallas_mlp_quad = True
+    mesh = make_mesh(("data",), dev)
+    torch.manual_seed(21)
+    ds = AvatarDataset(os.path.join(data, "sv_v31_all.json"), "train", cfg,
+                       down_sample=cfg.dataset.down_sample, full_image=True)
+    state = stage2.init_state(cfg, len(ds), dev)
+    state.nerf_opt = torch.optim.SGD(
+        list(state.renderer.parameters()) + [state.latent_codes], lr=0.0)
+    state.g_opt = torch.optim.SGD(state.generator.parameters(), lr=0.0)
+    state.d_opt = torch.optim.SGD(state.discriminator.parameters(), lr=0.0)
+    su = cfg.models.StyleUnet
+    host = prepare_batch(next(iter(Loader(ds, batch_size=cfg.gan.batch,
+                                          seed=3, num_workers=1))),
+                         su.out_size, su.inp_size)
+    host = {k: np.asarray(v) for k, v in host.items() if k in BATCH_KEYS}
+    spec = PM.ray_sharding(mesh)
+    local = {k: torch.from_numpy(np.ascontiguousarray(PM.local_shard(
+        v, spec if k in PM.RAY_AXIS_KEYS else None))).to(dev)
+        for k, v in host.items()}
+    B, Rn = host["mv_rays"].shape[:2]
+    gen = torch.Generator(device=dev).manual_seed(22)
+    nerf = cfg.nerf.train
+    draws = stage2.Stage2Draws(
+        R.draw_render_noise(gen, B, Rn, nerf.num_coarse, nerf.num_fine,
+                            bool(nerf.perturb),
+                            float(nerf.radiance_field_noise_std), dev),
+        stage2.sample_styles(gen, state.generator, B, cfg.gan, dev))
+    modules = {"renderer": state.renderer, "generator": state.generator}
+    params = [(f"{k}.{n}", p) for k, m in modules.items()
+              for n, p in m.named_parameters()]
+    params.append(("latent_codes", state.latent_codes))
+    real_pdf = R.sample_pdf
+    record = []
+
+    def recording(*a, **kw):
+        record.append((real_pdf(*a, **kw), (B, Rn // world)))
+        return record[-1][0]
+
+    def step(g_step, batch, pdf):
+        with patched(sample_pdf=pdf):
+            metrics = g_step(batch, draws)
+        torch.cuda.synchronize()
+        state.step = 0
+        return metrics, [None if p.grad is None else p.grad.clone()
+                         for _, p in params]
+
+    n0 = Q.quad_forward.launches, Q.quad_backward.launches
+    with deterministic_convs():
+        m_s, grads_s = step(stage2.make_steps(state, cfg, None, mesh)[2],
+                            local, recording)
+        n1 = Q.quad_forward.launches, Q.quad_backward.launches
+        samples = _replayed(record, 1, mesh)
+        out = {"launches": (n1[0] - n0[0], n1[1] - n0[1]),
+               "psnr": float(m_s["psnr"])}
+        _check(out["launches"] == (2 * B, 2 * B),
+               f"15 (c) stage 2: rank {rank}'s launches {out['launches']}")
+        if rank == 0:
+            replay = iter(samples)
+            m_1, grads_1 = step(stage2.make_steps(state, cfg)[2],
+                                {k: torch.from_numpy(v).to(dev)
+                                 for k, v in host.items()},
+                                lambda *a, **kw: next(replay))
+            loss_s = float(m_s["nerf_loss"] + m_s["hr_l1"])
+            loss_1 = float(m_1["nerf_loss"] + m_1["hr_l1"])
+            _check(abs(loss_s - loss_1) <= 1e-5 * abs(loss_1),
+                   f"15 (c) stage 2: loss {loss_s} vs {loss_1}")
+            g_max = max(float(g.abs().max())
+                        for (n, _), g in zip(params, grads_1)
+                        if n.startswith("generator.") and g is not None)
+            out["loss"], out["loss_single"] = loss_s, loss_1
+            out["worst"] = compare_step_grads(
+                [n for n, _ in params], grads_s, grads_1, "15 (c) stage 2",
+                lambda n: g_max if n.startswith("generator.") else None)
+    return out
+
+
+def _mesh_rank(rank: int, world: int, port: int, data: str,
+               out_dir: str) -> None:
+    """One of the ranks of 15 (b) and (c): a gloo process group on the
+    one card (cuda:0), TF32 off as in main; writes its results to
+    ``out_dir``."""
+    import datetime
+    from havatar_tpu_torch.parallel import comm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    comm.initialize(dev, backend="gloo",
+                    init_method=f"tcp://localhost:{port}", rank=rank,
+                    world_size=world,
+                    timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out = {"frames": _rank_frames(dev, rank, world)}
+        torch.cuda.empty_cache()
+        out["stage1"] = _rank_stage1(dev, rank, world, data)
+        torch.cuda.empty_cache()
+        out["stage2"] = _rank_stage2(dev, rank, world, data)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        comm.shutdown()
+
+
+def phase_mesh(dev, data: str) -> dict:
+    """Phase 15 (see the module docstring), on phase 8's training set
+    ``data``. Returns the sharded path's launches by kernel row name."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    world1 = _mesh_world1(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="havatar_mesh_") as out_dir:
+        ctx = mp.start_processes(
+            _mesh_rank, args=(MESH_WORLD, _free_port(), data, out_dir),
+            nprocs=MESH_WORLD, join=False, start_method="spawn")
+        try:
+            deadline = time.monotonic() + MESH_TIMEOUT_S
+            while not ctx.join(timeout=max(1.0,
+                                           deadline - time.monotonic())):
+                _check(time.monotonic() < deadline,
+                       f"15: the ranks still ran after {MESH_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(MESH_WORLD)]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    f0 = ranks[0]["frames"]
+    print(f"[15 mesh] (b) {MESH_WORLD} gloo ranks on one card: each ran "
+          f"{f0['launches']} march launches over {N_FRAMES} frames on "
+          f"{R_FRAME // MESH_WORLD} rays; frame 0 against one process's: "
+          f"{[r['frames']['pixels_differ'] for r in ranks]} pixels differ "
+          f"(by at most {MESH_FRAME_MAX_DIFF} of 255); frame-parallel "
+          f"frames: {[r['frames']['parallel_pixels_differ'] for r in ranks]}"
+          f" pixels differ; {[round(r['frames']['frame_ms'], 3) for r in ranks]}"
+          f" ms a frame, the all-gather "
+          f"{[round(r['frames']['gather_ms'], 4) for r in ranks]} ms "
+          f"(gloo, CUDA tensors)", flush=True)
+    for mode in ("rays", "frames"):
+        s = ranks[0]["stage1"][mode]
+        print(f"[15 mesh] (c) stage-1 step split on the {mode} "
+              f"({s['rows']} rays a rank, the fused chain {s['launches']} "
+              f"launches a rank): loss {s['loss']:.7f} vs one process's "
+              f"{s['loss_single']:.7f}; the worst gradient "
+              f"({s['worst'][1]}) off by {s['worst'][0]:.3g} of its "
+              f"largest entry (bound {TRAIN_GRAD_REL})", flush=True)
+    s = ranks[0]["stage2"]
+    print(f"[15 mesh] (c) stage-2 G step split on the rays (the quad op "
+          f"{s['launches']} launches a rank): NeRF + L1 loss "
+          f"{s['loss']:.7f} vs one process's {s['loss_single']:.7f}; the "
+          f"worst gradient ({s['worst'][1]}) off by {s['worst'][0]:.3g} of "
+          f"its largest entry (bound {TRAIN_GRAD_REL}, the generator's of "
+          f"the generator's largest)", flush=True)
+    print(f"[15 mesh] {smi}: phase {time.perf_counter() - t0:.1f} s; world "
+          f"1 (NCCL) {world1['mesh_ms']:.3f} ms a frame against "
+          f"{world1['bare_ms']:.3f} bare, all-gather "
+          f"{world1['gather_ms']:.4f} ms; peak device memory a rank "
+          f"{[round(r['peak_gib'], 3) for r in ranks]} GiB", flush=True)
+    s1, s2 = ranks[0]["stage1"], ranks[0]["stage2"]
+    return {**f0["launches"],
+            "mlp_fwd_f32": sum(s1[m]["launches"][0] for m in s1),
+            "mlp_bwd_f32": sum(s1[m]["launches"][1] for m in s1),
+            "mlp_quad_fwd_f32": s2["launches"][0],
+            "mlp_quad_bwd_f32": s2["launches"][1]}
+
+
 def phase_kernel_line(captured, launches, serve_launches,
                       drive_launches) -> list:
     """Each kernel on the inputs the frame gave it: error against its twin,
@@ -4080,6 +4518,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         hd_counts, hd_bf16_counts, hd_captured = phase_hd(dev, root, data,
                                                           ckpt)
+        torch.cuda.empty_cache()
+        sharded_launches = phase_mesh(dev, data)
     torch.cuda.empty_cache()
     field_rows = phase_field(dev, golden_coarse)
     del golden_coarse
@@ -4096,6 +4536,8 @@ def main() -> int:
     rows += mlp_kernel_rows(train_captured, train_counts, bf16_counts)
     rows += quad_kernel_rows(hd_captured, hd_counts, hd_bf16_counts)
     rows += field_rows
+    for row in rows:
+        row["launches_sharded"] = sharded_launches.get(row["name"], 0)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

@@ -9,6 +9,11 @@ Usage:
 (``checkpoints/stage2.py``). Port of ``havatar_tpu/cli/reenact.py``; where
 that CLI picks its platform from ``HAVATAR_PLATFORM``, this one takes
 ``--device`` (default: the CUDA device, and it raises without one).
+
+On N GPUs: ``torchrun --nproc_per_node N -m havatar_tpu_torch.cli.reenact
+...`` (``--device cpu``: N CPU processes on ``gloo``) splits each frame's
+rays over the ranks (``infer/serving.py``); rank 0 writes the PNGs and
+prints the stats.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Any, Dict, List, Optional
 from havatar_tpu_torch.checkpoints.stage2 import load_stage2_checkpoint
 from havatar_tpu_torch.cli.common import resolve_config, seed_everything
 from havatar_tpu_torch.infer.reenact import run_reenactment
+from havatar_tpu_torch.parallel import comm
 
 
 def load_inference_weights(ckpt_path: str):
@@ -33,7 +39,7 @@ def load_inference_weights(ckpt_path: str):
             ckpt["enc_mode"])
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config", type=str, default="singleview_512_HD_base.yml")
     p.add_argument("--ckpt", type=str, required=True)
@@ -56,7 +62,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: CUDA, an error without it)")
     args = p.parse_args(argv)
+    with comm.process_group(args.device):
+        return reenact(args)
 
+
+def reenact(args) -> Optional[Dict[str, Any]]:
+    """The run ``main``'s arguments describe; returns its stats on rank 0
+    (None on the others)."""
     cfg = resolve_config(args.config)
     seed_everything(cfg.experiment.randomseed)
 
@@ -66,8 +78,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if ckpt_enc != cfg_enc:
         # build the field the CHECKPOINT holds: the config's default would
         # not match its keys
-        print(f"checkpoint enc_mode {ckpt_enc!r} overrides config "
-              f"{cfg_enc!r}")
+        if comm.is_primary():
+            print(f"checkpoint enc_mode {ckpt_enc!r} overrides config "
+                  f"{cfg_enc!r}")
         cfg.models.coarse.enc_mode = ckpt_enc
     stats = run_reenactment(
         cfg, args.split, args.savedir, variables, latent_codes, g_ema,
@@ -75,8 +88,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         max_frames=args.max_frames or None, precision=args.precision,
         gated=args.gated, num_coarse=args.coarse or None,
         device=args.device)
-    print(json.dumps(stats))
-    print("Done!")
+    if stats is not None:
+        print(json.dumps(stats))
+        print("Done!")
     return stats
 
 

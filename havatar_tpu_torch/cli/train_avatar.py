@@ -19,7 +19,16 @@ or SIGINT saves a last checkpoint and ends the run.
 It runs on the CUDA device unless ``--device`` names another (and raises
 without CUDA). The patch-perceptual term needs converted LPIPS weights
 (``--lpips-weights``, an ``.npz``); it is switched off when the file is
-absent. The JAX CLI's multi-device branches are not ported.
+absent.
+
+On N GPUs: ``torchrun --nproc_per_node N -m
+havatar_tpu_torch.cli.train_avatar ...`` (``--device cpu``: N CPU
+processes on ``gloo``). Every rank reads the same batches and keeps its
+block (the frames when N divides the batch, else the rays:
+``parallel.auto_batch_shardings``), the state is broadcast from rank 0
+after its initialization or resume, the gradients are averaged, and only
+rank 0 prints ``[TRAIN]`` lines, validates, writes metrics and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -37,8 +46,10 @@ from havatar_tpu_torch.checkpoints.io import (
     stage1_checkpoint,
 )
 from havatar_tpu_torch.cli.common import (
+    any_rank,
     resolve_config,
     seed_everything,
+    split_axis,
     to_device_batch,
 )
 from havatar_tpu_torch.data import (
@@ -49,6 +60,8 @@ from havatar_tpu_torch.data import (
 )
 from havatar_tpu_torch.data.image_io import imwrite_rgb
 from havatar_tpu_torch.device import resolve_device
+from havatar_tpu_torch.parallel import auto_batch_shardings, comm, make_mesh
+from havatar_tpu_torch.parallel.mesh import sharded_keys
 from havatar_tpu_torch.train import stage1
 from havatar_tpu_torch.train.losses import mse2psnr
 from havatar_tpu_torch.train.lpips import load_lpips_file, lpips_loss
@@ -132,7 +145,7 @@ def run_validation(state: stage1.TrainState, vb: Dict[str, Any], val_cfg,
     return psnr
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--logdir", type=str, required=True)
     p.add_argument("--datadir", type=str, required=True)
@@ -150,20 +163,28 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: CUDA, an error without it)")
     args = p.parse_args(argv)
+    with comm.process_group(args.device):
+        return train(args)
 
+
+def train(args) -> Optional[Dict[str, Any]]:
+    """The run ``main``'s arguments describe; returns its record on rank 0
+    (None on the others)."""
     device = resolve_device(args.device)
+    primary = comm.is_primary()
     install_preemption()
     cfg = resolve_config(args.config)
     rng = seed_everything(cfg.experiment.randomseed, device)
 
-    os.makedirs(args.logdir, exist_ok=True)
-    writer = MetricsWriter(args.logdir)
-    with open(os.path.join(args.logdir, f"config_{timestamp()}.yml"),
-              "w") as f:
-        f.write(cfg.dump())
-    create_code_snapshot(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        os.path.join(args.logdir, f"code_bk_{timestamp()}.tar.gz"))
+    writer = None
+    if primary:
+        writer = MetricsWriter(args.logdir)
+        with open(os.path.join(args.logdir, f"config_{timestamp()}.yml"),
+                  "w") as f:
+            f.write(cfg.dump())
+        create_code_snapshot(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            os.path.join(args.logdir, f"code_bk_{timestamp()}.tar.gz"))
 
     split = os.path.join(args.datadir, "sv_v31_all.json")
     train_ds = AvatarDataset(split, "train", cfg,
@@ -172,8 +193,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                           seed=cfg.experiment.randomseed)
     state = stage1.init_state(cfg, len(train_ds), device)
 
-    ckpt_mgr = CheckpointManager(os.path.join(args.logdir, "checkpoints"),
-                                 save_interval_steps=cfg.experiment.save_every)
+    ckpt_mgr = None
+    if primary:
+        ckpt_mgr = CheckpointManager(
+            os.path.join(args.logdir, "checkpoints"),
+            save_interval_steps=cfg.experiment.save_every)
     pretrain_hist: List[float] = []
     ckpt = load_checkpoint(args.ckpt) if args.ckpt else None
     if ckpt is not None:
@@ -191,7 +215,21 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if cfg.experiment.get("patch_rgb", False) and lpips_params is None:
         print("note: patch_rgb is on but no LPIPS weights found at "
               f"{args.lpips_weights}; the patch perceptual term is disabled")
-    train_step = stage1.make_train_step(state, cfg, lpips_params)
+    mesh, shardings, frame_parallel = None, None, False
+    if comm.get_world_size() > 1:
+        mesh = make_mesh(("data",), device)
+        example = next(iter(Loader(train_ds, batch_size=args.batch_size,
+                                   shuffle=False, num_workers=1)))
+        shardings = auto_batch_shardings(
+            mesh, {k: v for k, v in example.items() if k in TRAIN_KEYS})
+        frame_parallel = split_axis(shardings) == 0
+        comm.broadcast_(list(state.renderer.state_dict().values())
+                        + [state.latent_codes])
+        if primary:
+            print(f"data mesh: {mesh.size()} devices; sharded keys: "
+                  f"{sharded_keys(shardings)}", flush=True)
+    train_step = stage1.make_train_step(state, cfg, lpips_params, mesh,
+                                        frame_parallel)
 
     # validation: full images at native resolution
     val_ds = AvatarDataset(split, "val", cfg, down_sample=1.0)
@@ -202,12 +240,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     max_iters = args.max_iters or cfg.experiment.train_iters
     timer = StepTimer(device=device)
     data_iter = device_prefetch(infinite(train_loader), size=2,
-                                device=device, keys=TRAIN_KEYS)
+                                device=device, keys=TRAIN_KEYS,
+                                sharding=shardings)
     losses: List[float] = []
     val_psnr: List[float] = []
     saved: List[int] = []
 
     def save(force: bool = False) -> None:
+        if not primary:
+            return
         tree = stage1_checkpoint(state.renderer, state.latent_codes,
                                  state.optimizer, state.step,
                                  loss=losses[-1] if losses else float("nan"))
@@ -223,26 +264,31 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         if timed:
             timer.stop()
             losses.append(float(metrics["loss"]))
-            print(f"[TRAIN] Iter: {i} Loss: {losses[-1]:.6f} "
-                  f"PSNR: {float(metrics['psnr']):.4f} "
-                  f"s/iter: {timer.mean:.3f}", flush=True)
-            for k, v in metrics.items():
-                writer.scalar(f"train/{k}", float(v), i)
-        if i > start_step and i % cfg.experiment.validate_every == 0:
+            if primary:
+                print(f"[TRAIN] Iter: {i} Loss: {losses[-1]:.6f} "
+                      f"PSNR: {float(metrics['psnr']):.4f} "
+                      f"s/iter: {timer.mean:.3f}", flush=True)
+                for k, v in metrics.items():
+                    writer.scalar(f"train/{k}", float(v), i)
+        validate = i > start_step and i % cfg.experiment.validate_every == 0
+        if primary and validate:
             vb = to_device_batch(next(val_iter), device)
             val_psnr.append(run_validation(state, vb, cfg.nerf.validation,
                                            writer, i, lpips_params))
-        if i > start_step and i % cfg.experiment.save_every == 0:
+        if primary and i > start_step and i % cfg.experiment.save_every == 0:
             visualize_skin_volume(
                 state.renderer,
                 os.path.join(args.logdir, f"vis_motionWeightVol{i:05d}.obj"))
         save()
-        if should_stop():
+        if any_rank(should_stop(), device):
             print(f"preempted at iter {i}; saving a checkpoint", flush=True)
             break
     if state.step > start_step and state.step not in saved:
         save(force=True)    # the run's last state, whatever the interval
 
+    comm.synchronize()
+    if not primary:
+        return None
     ckpt_mgr.wait()
     writer.close()
     print("Done!")

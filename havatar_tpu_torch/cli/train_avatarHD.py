@@ -24,7 +24,16 @@ SIGTERM or SIGINT saves one and ends the run.
 It runs on the CUDA device unless ``--device`` names another (and raises
 without CUDA). There are no LPIPS weights in the repository, so the G step's
 0.1 * LPIPS term is off unless ``--lpips-weights`` names a converted file,
-and the run says so. The JAX CLI's multi-device branches are not ported.
+and the run says so.
+
+On N GPUs: ``torchrun --nproc_per_node N -m
+havatar_tpu_torch.cli.train_avatarHD ...`` (``--device cpu``: N CPU
+processes on ``gloo``), as ``cli/train_avatar.py``: every rank reads the
+same batches and keeps its block of the rays (``train/stage2.py`` says why
+never the frames), the state is broadcast from rank 0 after its warm start
+or resume, the G and D gradients are averaged, and only rank 0 prints
+``[HD]`` lines and writes metrics, sample grids and checkpoints (every rank
+renders its block of a sample grid's rays).
 """
 
 from __future__ import annotations
@@ -41,10 +50,17 @@ from havatar_tpu_torch.checkpoints.stage2 import (
     restore_stage2_training,
     stage2_training_checkpoint,
 )
-from havatar_tpu_torch.cli.common import BATCH_KEYS, resolve_config, seed_everything
+from havatar_tpu_torch.cli.common import (
+    BATCH_KEYS,
+    any_rank,
+    resolve_config,
+    seed_everything,
+)
 from havatar_tpu_torch.data import AvatarDataset, Loader, device_prefetch, infinite
 from havatar_tpu_torch.data.image_io import imwrite_rgb
 from havatar_tpu_torch.device import resolve_device
+from havatar_tpu_torch.parallel import comm, make_mesh, ray_sharding, replicated
+from havatar_tpu_torch.parallel.mesh import RAY_AXIS_KEYS, sharded_keys
 from havatar_tpu_torch.train import stage2
 from havatar_tpu_torch.train.lpips import load_lpips_file
 from havatar_tpu_torch.utils.logging_util import MetricsWriter
@@ -102,21 +118,20 @@ def warm_start(state: stage2.Stage2State, ckpt: Dict[str, Any],
 
 
 def save_sample_grid(state: stage2.Stage2State, cfg, batch: Dict[str, Any],
-                     path: str) -> None:
+                     path: str, mesh=None) -> None:
     """g_ema's image of a deterministic render (zero style, no noise) beside
     the render's colour upsampled by repetition and the target, one row an
-    item, as a PNG."""
+    item, as a PNG. With ``mesh`` every rank renders its block of the
+    rays and rank 0 writes the whole grid."""
     val = cfg.nerf.validation
-    rays = batch["mv_rays"]
     gen_size = cfg.models.StyleUnet.out_size
     up = gen_size // cfg.models.StyleUnet.inp_size
     with torch.no_grad():
-        render, _ = state.renderer.render_full_image(
-            rays[..., :8], rays[..., 8:11],
-            state.latent_codes[batch["dataset_idx"]], batch["inv_head_T"],
-            batch["front_render_cond"], batch["left_render_cond"],
-            batch["right_render_cond"], num_coarse=val.num_coarse,
-            num_fine=val.num_fine, perturb=False)
+        render, _ = stage2.render_image(
+            state.renderer, state.latent_codes, batch, val.num_coarse,
+            val.num_fine, mesh=mesh)
+        if not comm.is_primary():
+            return
         style = torch.zeros(render.shape[0], cfg.gan.latent,
                             device=render.device)
         sample = state.g_ema(style, stage2.nchw(render[..., 3:]))
@@ -128,7 +143,7 @@ def save_sample_grid(state: stage2.Stage2State, cfg, batch: Dict[str, Any],
     imwrite_rgb(path, grid.reshape(-1, grid.shape[2], 3))
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--logdir", type=str, required=True)
     p.add_argument("--datadir", type=str, required=True)
@@ -174,8 +189,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = p.parse_args(argv)
     if args.turbo:
         args.fast_step = args.fused_quad = args.bf16 = True
+    with comm.process_group(args.device):
+        return train(args)
 
+
+def train(args) -> Optional[Dict[str, Any]]:
+    """The run ``main``'s arguments describe; returns its record on rank 0
+    (None on the others)."""
     device = resolve_device(args.device)
+    primary = comm.is_primary()
     install_preemption()
     cfg = resolve_config(args.config)
     if args.fused_mlp:
@@ -188,10 +210,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     render_size = cfg.models.StyleUnet.inp_size
     gen_size = cfg.models.StyleUnet.out_size
 
-    os.makedirs(args.logdir, exist_ok=True)
-    writer = MetricsWriter(args.logdir)
-    with open(os.path.join(args.logdir, "config.yml"), "w") as f:
-        f.write(cfg.dump())
+    writer = None
+    if primary:
+        writer = MetricsWriter(args.logdir)
+        with open(os.path.join(args.logdir, "config.yml"), "w") as f:
+            f.write(cfg.dump())
 
     split = os.path.join(args.datadir, "sv_v31_all.json")
     train_ds = AvatarDataset(split, "train", cfg,
@@ -206,35 +229,52 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ckpt = load_checkpoint(args.ckpt) if args.ckpt else None
     if ckpt is not None:
         start = warm_start(state, ckpt, args.continue_training, device)
-        print(f"{'resumed' if args.continue_training else 'warm-started'} "
-              f"from {args.ckpt} at iteration {start}", flush=True)
+        if primary:
+            print(f"{'resumed' if args.continue_training else 'warm-started'}"
+                  f" from {args.ckpt} at iteration {start}", flush=True)
 
     lpips_params = load_lpips_file(args.lpips_weights, device)
-    if lpips_params is None:
+    if lpips_params is None and primary:
         print("=" * 70 + "\nWARNING: no LPIPS weights at "
               f"'{args.lpips_weights}': the 0.1*LPIPS perceptual term of the "
               "G step is DISABLED.\n" + "=" * 70, flush=True)
-    d_step, r1_step, g_step, dg_step = stage2.make_steps(state, cfg,
-                                                         lpips_params)
+    mesh, shardings = None, None
+    if comm.get_world_size() > 1:
+        mesh = make_mesh(("data",), device)
+        shardings = {k: (ray_sharding if k in RAY_AXIS_KEYS
+                         else replicated)(mesh) for k in sorted(BATCH_KEYS)}
+        comm.broadcast_(
+            [state.latent_codes]
+            + [t for m in (state.renderer, state.generator,
+                           state.discriminator, state.g_ema)
+               for t in m.state_dict().values()])
+        if primary:
+            print(f"data mesh: {mesh.size()} devices; sharded keys: "
+                  f"{sharded_keys(shardings)}", flush=True)
+    d_step, r1_step, g_step, dg_step = stage2.make_steps(
+        state, cfg, lpips_params, mesh)
 
-    ckpt_mgr = CheckpointManager(os.path.join(args.logdir, "checkpoints"),
-                                 save_interval_steps=cfg.experiment.save_every)
+    ckpt_mgr = None
     sample_dir = os.path.join(args.logdir, "sample")
-    os.makedirs(sample_dir, exist_ok=True)
+    if primary:
+        ckpt_mgr = CheckpointManager(
+            os.path.join(args.logdir, "checkpoints"),
+            save_interval_steps=cfg.experiment.save_every)
+        os.makedirs(sample_dir, exist_ok=True)
 
     max_iters = args.max_iters or cfg.gan.iter
     timer = StepTimer(device=device)
     data_iter = device_prefetch(
         (prepare_batch(b, gen_size, render_size) for b in infinite(loader)),
-        size=2, device=device, keys=BATCH_KEYS)
+        size=2, device=device, keys=BATCH_KEYS, sharding=shardings)
     history: Dict[str, List[float]] = {"iter": [], "psnr": [], "d": [],
                                        "g": [], "r1": []}
     samples: List[int] = []
     saved: List[int] = []
 
     def save(done: int, force: bool = False) -> None:
-        if ckpt_mgr.save(done, stage2_training_checkpoint(state, done),
-                         force=force):
+        if primary and ckpt_mgr.save(
+                done, stage2_training_checkpoint(state, done), force=force):
             saved.append(done)
 
     done = start
@@ -264,21 +304,27 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             history["iter"].append(i)
             for k, v in row.items():
                 history[k].append(v)
-            print(f"[HD] iter {i} PSNR {row['psnr']:.3f} d {row['d']:.4f} "
-                  f"g {row['g']:.4f} s/iter {timer.mean:.3f}", flush=True)
-            for k, v in {**d_metrics, **g_metrics}.items():
-                writer.scalar(f"train/{k}", float(v), i)
+            if primary:
+                print(f"[HD] iter {i} PSNR {row['psnr']:.3f} "
+                      f"d {row['d']:.4f} g {row['g']:.4f} "
+                      f"s/iter {timer.mean:.3f}", flush=True)
+                for k, v in {**d_metrics, **g_metrics}.items():
+                    writer.scalar(f"train/{k}", float(v), i)
         if i > start and i % cfg.experiment.validate_every == 0:
             save_sample_grid(state, cfg, batch,
-                             os.path.join(sample_dir, f"{i:06d}.png"))
+                             os.path.join(sample_dir, f"{i:06d}.png"),
+                             mesh)
             samples.append(i)
         save(done)
-        if should_stop():
+        if any_rank(should_stop(), device):
             print(f"preempted at iter {i}; saving a checkpoint", flush=True)
             break
     if done > start and done not in saved:
         save(done, force=True)    # the run's last state, whatever the interval
 
+    comm.synchronize()
+    if not primary:
+        return None
     ckpt_mgr.wait()
     writer.close()
     print("Done!")

@@ -2,7 +2,7 @@
 renders a driving split to PNG frames, and the flagship model.
 
 Port of ``havatar_tpu/infer/reenact.py`` (``make_reenact_fn``,
-``mean_style``, ``run_reenactment`` on one device) and of the bench flagship
+``mean_style``, ``run_reenactment``) and of the bench flagship
 (``__graft_entry__.py:_build_flagship``): two plane generators (256^2
 conditions -> 128^2 x 64 planes), the gated march (16 coarse + 16 fine
 samples a ray by default), and StyleUNetSR lifting the 128^2 feature image
@@ -45,6 +45,8 @@ from havatar_tpu_torch.models.skinning import (
     fix_canonical_volume,
 )
 from havatar_tpu_torch.ops.rays import get_rays_np, tighten_ray_near_far
+from havatar_tpu_torch.parallel import comm
+from havatar_tpu_torch.parallel.mesh import local_shard, make_mesh, ray_sharding
 
 
 def mean_style(style_dim: int, n: int = 1000, seed: int = 42,
@@ -56,12 +58,29 @@ def mean_style(style_dim: int, n: int = 1000, seed: int = 42,
     return torch.randn(n, 1, style_dim, generator=g).mean(0).to(dev)
 
 
-def make_reenact_fn(renderer: AvatarRenderer, generator: StyleUNetSR, *,
+def super_resolve(generator: Optional[StyleUNetSR], style: torch.Tensor,
+                  render: torch.Tensor, to_uint8: bool) -> torch.Tensor:
+    """The generator's frame [B, H, W, 3] of the render [B, s, s, 3 + C]
+    (its features) for ``style`` [1 or B, D]: uint8, or float in [0, 1]
+    scale; the render itself when ``generator`` is None."""
+    if generator is None:
+        return render
+    style_b = style.expand(render.shape[0], style.shape[-1])
+    img = generator(style_b, render[..., 3:].permute(0, 3, 1, 2))
+    img = img.permute(0, 2, 3, 1)
+    if to_uint8:
+        img = torch.clamp(img * 255.0, 0.0, 255.0).to(torch.uint8)
+    return img
+
+
+def make_reenact_fn(renderer: AvatarRenderer,
+                    generator: Optional[StyleUNetSR], *,
                     num_coarse: int = 64, num_fine: int = 16,
                     gated: bool = False, to_uint8: bool = True) -> Callable:
     """The per-frame pipeline: (fixed_volume, style, rays, bg, latent,
     inv_head_T, front, left, right) -> frame [B, H, W, 3], uint8 or (with
-    ``to_uint8=False``) float in [0, 1] scale.
+    ``to_uint8=False``) float in [0, 1] scale; the feature render
+    [B, s, s, 3 + C] without a ``generator``.
 
     ``gated`` cuts each ray's near/far to the avatar's world AABB plus the
     one-texel halo (``renderer.gate_aabb``) before the march; pair it with
@@ -77,12 +96,7 @@ def make_reenact_fn(renderer: AvatarRenderer, generator: StyleUNetSR, *,
                 rays, bg, latent, inv_head_T, front, left, right,
                 num_coarse=num_coarse, num_fine=num_fine,
                 fixed_volume=fixed_volume)
-            style_b = style.expand(render.shape[0], style.shape[-1])
-            img = generator(style_b, render[..., 3:].permute(0, 3, 1, 2))
-            img = img.permute(0, 2, 3, 1)
-            if to_uint8:
-                img = torch.clamp(img * 255.0, 0.0, 255.0).to(torch.uint8)
-            return img
+            return super_resolve(generator, style, render, to_uint8)
 
     return frame_fn
 
@@ -107,7 +121,7 @@ def run_reenactment(cfg, split_file: str, savedir: str, variables,
                     max_frames: Optional[int] = None,
                     pipeline_depth: int = 3, precision: str = "auto",
                     gated: bool = False, num_coarse: Optional[int] = None,
-                    device: DeviceLike = None) -> Dict[str, Any]:
+                    device: DeviceLike = None) -> Optional[Dict[str, Any]]:
     """Offline reenactment loop: renders every (frame, view) item of the
     driving split to ``savedir/rgb/{fidx}_{vidx:02d}.png``. Returns timing
     stats {"frames", "seconds", "fps", "ray_cache_entries"}.
@@ -125,13 +139,23 @@ def run_reenactment(cfg, split_file: str, savedir: str, variables,
     first blocking readback (on CUDA each uint8 frame goes to a pinned
     buffer with a non-blocking copy and an event, drained in order), and
     rays are cached per view and per ray bytes (a camera may move between
-    frames, so the view index alone is no safe key). One device only.
+    frames, so the view index alone is no safe key).
+
+    Under a process group of N ranks (``torchrun``; ``parallel.comm``)
+    each frame's ray axis is split over the ranks
+    (``serving.make_sharded_frame_fn``): the ray cache holds this rank's
+    block of each camera's rays and background, only the primary rank
+    writes the PNGs and returns the stats, and the others return None
+    after the last frame's collective.
     """
     from havatar_tpu_torch.data import AvatarDataset, Loader, device_prefetch
     from havatar_tpu_torch.data.image_io import imwrite_rgb
     from havatar_tpu_torch.train.stage1 import build_renderer
 
     dev = resolve_device(device)
+    mesh = make_mesh(("data",), dev) if comm.get_world_size() > 1 else None
+    spec = None if mesh is None else ray_sharding(mesh)
+    primary = comm.is_primary()
     if precision == "auto":
         precision = "fast" if dev.type == "cuda" else "exact"
     if precision == "fast":
@@ -153,15 +177,21 @@ def run_reenactment(cfg, split_file: str, savedir: str, variables,
     generator.load_state_dict(g_ema_params)
     renderer, generator = renderer.to(dev).eval(), generator.to(dev).eval()
 
-    os.makedirs(os.path.join(savedir, "rgb"), exist_ok=True)
+    if primary:
+        os.makedirs(os.path.join(savedir, "rgb"), exist_ok=True)
     style = mean_style(generator.style_dim, seed=seed, device=dev)
     with torch.inference_mode():
         fixed_volume = fix_canonical_volume(renderer.skin_volume())
     nerf_cfg = cfg.nerf.validation
-    frame_fn = make_reenact_fn(
-        renderer, generator, gated=gated, num_fine=int(nerf_cfg.num_fine),
-        num_coarse=int(num_coarse if num_coarse is not None
-                       else nerf_cfg.num_coarse))
+    march = dict(gated=gated, num_fine=int(nerf_cfg.num_fine),
+                 num_coarse=int(num_coarse if num_coarse is not None
+                                else nerf_cfg.num_coarse))
+    if mesh is None:
+        frame_fn = make_reenact_fn(renderer, generator, **march)
+    else:
+        from havatar_tpu_torch.infer.serving import make_sharded_frame_fn
+        frame_fn = make_sharded_frame_fn(mesh, renderer, generator,
+                                         to_uint8=True, **march)
 
     ds = AvatarDataset(split_file, mode="test", cfg=cfg,
                        down_sample=cfg.dataset.down_sample, full_image=True)
@@ -210,8 +240,9 @@ def run_reenactment(cfg, split_file: str, savedir: str, variables,
             key = (int(batch["vidx"][0]), hash(host_rays.tobytes()))
             cached = ray_cache.get(key)
             if cached is None:
-                rays = torch.from_numpy(host_rays[..., :8]).to(dev)
-                bg = torch.from_numpy(host_rays[..., 8:11]).to(dev)
+                rays, bg = (torch.from_numpy(np.ascontiguousarray(
+                    local_shard(host_rays[..., a:b], spec))).to(dev)
+                    for a, b in ((0, 8), (8, 11)))
                 if len(ray_cache) > 64:   # freeview: each frame a new camera
                     ray_cache.clear()
                 ray_cache[key] = (rays, bg)
@@ -221,12 +252,19 @@ def run_reenactment(cfg, split_file: str, savedir: str, variables,
                            batch["inv_head_T"], batch["front_render_cond"],
                            batch["left_render_cond"],
                            batch["right_render_cond"])
-            name = f"{batch['fidx'][0]}_{batch['vidx'][0]:02d}.png"
-            pending.append((*read_back(img), name))
-            drain(pipeline_depth)
+            if primary:
+                name = f"{batch['fidx'][0]}_{batch['vidx'][0]:02d}.png"
+                pending.append((*read_back(img), name))
+                drain(pipeline_depth)
             n += 1
         drain(0)
+    if mesh is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        comm.synchronize()
     t_total = time.perf_counter() - t0
+    if not primary:
+        return None
     return {"frames": n, "seconds": t_total,
             "fps": n / t_total if t_total > 0 else 0.0,
             "ray_cache_entries": len(ray_cache)}
@@ -294,7 +332,7 @@ def build_flagship(device: DeviceLike = None, seed: int = 0,
                    gated: bool = True, render_size: int = 128,
                    cond_res: int = 256, plane_res: int = 128,
                    plane_middle_size: int = 16, sr_out: int = 512,
-                   use_quad_march: bool = True) -> Flagship:
+                   use_quad_march: bool = True, mesh=None) -> Flagship:
     """The flagship reenactment model in bf16 with weights drawn from
     ``seed`` (``seeded_init_``) and the flagship's inputs for one frame: its
     camera, white background, zero latent and style, identity head pose and
@@ -302,7 +340,10 @@ def build_flagship(device: DeviceLike = None, seed: int = 0,
     rows (``march_coarse`` / ``march_fine``) by default, on the reduced MLP
     input (``march_coarse_x`` / ``march_fine_x``) with
     ``use_quad_march=False``. Sizes default to the full width (the tests
-    pass tiny ones); on CUDA unless ``device`` says otherwise."""
+    pass tiny ones); on CUDA unless ``device`` says otherwise. With
+    ``mesh`` (``parallel.make_mesh``) the frame is
+    ``serving.make_sharded_frame_fn``'s and ``inputs`` holds this rank's
+    block of the rays and background."""
     dev = resolve_device(device)
     renderer = AvatarRenderer(render_size=render_size, cond_res=cond_res,
                               plane_res=plane_res,
@@ -331,6 +372,18 @@ def build_flagship(device: DeviceLike = None, seed: int = 0,
         **{k: torch.full((B, cond_res, cond_res, 7), 0.5, device=dev)
            for k in ("front", "left", "right")},
     }
-    frame_fn = make_reenact_fn(renderer, generator, num_coarse=num_coarse,
-                               num_fine=num_fine, gated=gated, to_uint8=False)
+    march = dict(num_coarse=num_coarse, num_fine=num_fine, gated=gated,
+                 to_uint8=False)
+    if mesh is None:
+        frame_fn = make_reenact_fn(renderer, generator, **march)
+    else:
+        from havatar_tpu_torch.infer.serving import (
+            make_sharded_frame_fn,
+            place_frame_inputs,
+        )
+        frame_fn = make_sharded_frame_fn(mesh, renderer, generator, **march)
+        inputs["rays"], inputs["bg"] = (t.contiguous() for t in
+                                        place_frame_inputs(
+                                            mesh, inputs["rays"],
+                                            inputs["bg"]))
     return Flagship(frame_fn, renderer, generator, inputs)

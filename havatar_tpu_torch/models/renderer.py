@@ -93,6 +93,20 @@ def draw_render_noise(rng: torch.Generator, B: int, R: int, num_coarse: int,
         if noisy and fine else None)
 
 
+def shard_render_noise(noise: RenderNoise, B: int, R: int, axis: int,
+                       rank: int, world: int) -> RenderNoise:
+    """This rank's part of draws made for all [B, R] rays, when the rays
+    are split over ``world`` ranks on ``axis`` (0: frames, 1: rays)."""
+    def cut(t):
+        if t is None:
+            return None
+        part = t.reshape(B, R, -1)
+        k = part.shape[axis] // world
+        part = part.narrow(axis, rank * k, k)
+        return part if t.dim() == 3 else part.reshape(-1, part.shape[-1])
+    return RenderNoise(*(cut(t) for t in noise))
+
+
 def _merge_ranks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Sorted positions of concat(a, b) for two ascending lists [R, Na],
     [R, Nb], by comparison counts; the < / <= tie rule is a stable sort of

@@ -11,8 +11,20 @@ Adam with an exponentially decayed learning rate that has a floor.
 
 Where the JAX trainer threads a PRNG key through its jitted step, this one
 takes a ``torch.Generator`` (or, from a test, the draws themselves: see
-``models/renderer.py:RenderNoise``). The JAX package's multi-device render
-route (its ``mesh`` arguments) is not ported.
+``models/renderer.py:RenderNoise``).
+
+On several GPUs (``mesh``: one process a GPU, ``parallel/``) each rank gets
+its block of the batch. Split on the rays (the JAX package's ``shard_map``
+route), a rank generates the planes, renders its rays, and the outputs the
+loss reads are all-gathered, so every rank computes JAX's loss on the
+global tensors; the gather's backward sums each block's gradient over the
+ranks, and averaging the parameter gradients (``comm.all_reduce_grads``)
+then gives the global loss's gradient exactly, replicated terms (the code
+loss, the skinning TV) counted once. Split on the frames
+(``frame_parallel``: the world size divides the batch), a rank's loss is
+over its frames and the gradients are averaged. A rank's sample noise comes
+from a generator with its rank folded in, or, given the draws of all rays,
+from its block of them.
 """
 
 from __future__ import annotations
@@ -27,8 +39,11 @@ from havatar_tpu_torch.models.renderer import (
     AvatarRenderer,
     RenderNoise,
     latent_code_loss,
+    shard_render_noise,
 )
 from havatar_tpu_torch.models.skinning import make_volume_pts
+from havatar_tpu_torch.parallel import comm
+from havatar_tpu_torch.parallel.mesh import mesh_rank_size
 from havatar_tpu_torch.train import losses as L
 from havatar_tpu_torch.train.lpips import lpips_loss
 
@@ -113,17 +128,60 @@ def init_state(cfg, num_frames: int, device=None,
 Rng = Union[None, torch.Generator, RenderNoise]
 
 
+def rank_rng(rng: Rng, rays: torch.Tensor, frame_parallel: bool, mesh
+             ) -> Rng:
+    """This rank's randomness for a render of its block ``rays`` [B, R, C]
+    of the batch (split on the frames or on the rays): its part of draws
+    made for all rays, or a generator with its rank folded in."""
+    rank, world = mesh_rank_size(mesh)
+    if world == 1 or rng is None:
+        return rng
+    if isinstance(rng, RenderNoise):
+        B, R = rays.shape[:2]
+        axis = 0 if frame_parallel else 1
+        B, R = (B * world, R) if frame_parallel else (B, R * world)
+        return shard_render_noise(rng, B, R, axis, rank, world)
+    return comm.fold_in(rng, rank)
+
+
+def reduce_metrics(metrics: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """Metrics of this rank's frames -> their mean over the ranks, a PSNR
+    averaged as its MSE."""
+    if comm.get_world_size() == 1:
+        return metrics
+    mse = {k: 10.0 ** (-v.detach() / 10.0) if k.endswith("psnr") else v
+           for k, v in metrics.items()}
+    mean = comm.reduce_loss_dict(mse)
+    return {k: L.mse2psnr(v) if k.endswith("psnr") else v
+            for k, v in mean.items()}
+
+
+# the render's outputs that the loss reads: all-gathered on the ray axis
+GATHERED = ("rgb_coarse", "acc_coarse", "rgb_fine", "acc_fine")
+
+
 def make_loss_fn(renderer: AvatarRenderer, cfg,
-                 lpips_params: Optional[Any] = None
+                 lpips_params: Optional[Any] = None, mesh=None,
+                 frame_parallel: bool = False
                  ) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
     """The stage-1 loss as fn(latent_codes, batch, rng) -> (loss, metrics).
     Public so that a test can compare raw gradients: parameters after the
-    first Adam step do not depend on the gradient's scale."""
+    first Adam step do not depend on the gradient's scale.
+
+    ``mesh`` (``parallel.make_mesh``): ``batch`` is this rank's block,
+    split on the rays (``mv_rays`` and ``gt_color`` [B, R / N, ...], the
+    rest whole) or, with ``frame_parallel``, on the frames; ``rng`` is a
+    generator (the same on every rank) or the draws of all rays. The
+    metrics are the global ones on every rank; the loss is the global one
+    on the rays, this rank's frames' with ``frame_parallel``."""
     nerf_cfg = cfg.nerf.train
     mask_weight = cfg.experiment.mask_weight
     use_patch = (bool(cfg.experiment.get("patch_rgb", False))
                  and lpips_params is not None)
     use_l1 = cfg.experiment.rgb_loss != "mse"
+    group = None if mesh is None else mesh.get_group()
+    ray_sharded = mesh_rank_size(mesh)[1] > 1 and not frame_parallel
 
     def rgb_loss_fn(a, b):
         return (a - b).abs().mean() if use_l1 else (a - b).square().mean()
@@ -131,7 +189,6 @@ def make_loss_fn(renderer: AvatarRenderer, cfg,
     def loss_fn(latent_codes: torch.Tensor, batch: Dict[str, torch.Tensor],
                 rng: Rng):
         rays = batch["mv_rays"]
-        ray_mask = rays[..., -1:]
         latent = latent_codes[batch["dataset_idx"]]
         out = renderer(
             rays[..., :8], rays[..., 8:11], latent, batch["inv_head_T"],
@@ -140,9 +197,15 @@ def make_loss_fn(renderer: AvatarRenderer, cfg,
             num_coarse=nerf_cfg.num_coarse, num_fine=nerf_cfg.num_fine,
             perturb=bool(nerf_cfg.perturb),
             radiance_field_noise_std=float(nerf_cfg.radiance_field_noise_std),
-            rng=rng)
+            rng=rank_rng(rng, rays, frame_parallel, mesh))
+        target, ray_mask = batch["gt_color"], rays[..., -1:]
+        if ray_sharded:
+            out = {k: comm.all_gather(v, 1, group)
+                   if k in GATHERED and v is not None else v
+                   for k, v in out.items()}
+            target = comm.all_gather(target, 1, group)
+            ray_mask = comm.all_gather(ray_mask, 1, group)
 
-        target = batch["gt_color"]
         coarse_loss = rgb_loss_fn(out["rgb_coarse"][..., :3], target)
         mask_coarse = L.binary_cross_entropy(out["acc_coarse"], ray_mask)
         loss = coarse_loss + mask_weight * mask_coarse
@@ -176,24 +239,34 @@ def make_loss_fn(renderer: AvatarRenderer, cfg,
         metrics.update({"loss": loss, "code_loss": code_loss,
                         "sw_grad_loss": sw_loss,
                         "psnr": L.mse2psnr(psnr_mse)})
+        if frame_parallel:
+            metrics = reduce_metrics(metrics)
         return loss, metrics
 
     return loss_fn
 
 
 def make_train_step(state: TrainState, cfg,
-                    lpips_params: Optional[Any] = None):
+                    lpips_params: Optional[Any] = None, mesh=None,
+                    frame_parallel: bool = False):
     """Returns train_step(batch, rng) -> metrics (detached tensors): one
-    forward, backward and Adam update of ``state``, in place."""
-    loss_fn = make_loss_fn(state.renderer, cfg, lpips_params)
+    forward, backward and Adam update of ``state``, in place. ``mesh`` and
+    ``frame_parallel`` as ``make_loss_fn``'s; the gradients are averaged
+    over the ranks before the update, which every rank then makes alike."""
+    loss_fn = make_loss_fn(state.renderer, cfg, lpips_params, mesh,
+                           frame_parallel)
+    params = list(state.renderer.parameters()) + [state.latent_codes]
+    group = None if mesh is None else mesh.get_group()
 
     def train_step(batch: Dict[str, torch.Tensor], rng: Rng):
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(state.latent_codes, batch, rng)
         loss.backward()
+        if mesh is not None:
+            comm.all_reduce_grads(params, group=group)
         lr = learning_rate(cfg, state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for pg in state.optimizer.param_groups:
+            pg["lr"] = lr
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}

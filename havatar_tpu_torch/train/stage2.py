@@ -30,7 +30,17 @@ from a test, the draws themselves (``Stage2Draws``: the render's
 ``RenderNoise`` and the generator's ``StyleDraws``). The render is not
 rematerialised: the JAX package recomputes it in the backward to fit a 16 GB
 chip, and PyTorch would draw its noise again there; the peak memory without
-it is measured on the card instead. The JAX ``mesh`` argument is not ported.
+it is measured on the card instead.
+
+On several GPUs (``mesh``, as ``train/stage1.py``'s) the batch is split on
+the rays (the JAX package's ``shard_map`` route): each rank renders its
+block of the rays and the [B, 128, 128, 3 + 64] feature image is
+all-gathered; the generator, the discriminator, LPIPS and R1 then run on
+every rank on the whole batch and the same style draws. The G and D
+gradients are averaged over the ranks before each update, and the EMA moves
+alike on every rank. The frames are never split here: the discriminator's
+minibatch-stddev channel mixes the items of a batch, so D on a rank's
+frames is not D on the batch.
 """
 
 from __future__ import annotations
@@ -51,10 +61,12 @@ from havatar_tpu_torch.models.renderer import (
     draw_render_noise,
     latent_code_loss,
 )
+from havatar_tpu_torch.parallel import comm
+from havatar_tpu_torch.parallel.mesh import mesh_rank_size
 from havatar_tpu_torch.train import losses as L
 from havatar_tpu_torch.train.ema import ema_update
 from havatar_tpu_torch.train.lpips import lpips_loss
-from havatar_tpu_torch.train.stage1 import _DTYPES, build_renderer
+from havatar_tpu_torch.train.stage1 import _DTYPES, build_renderer, rank_rng
 
 EMA_DECAY = 0.5 ** (32.0 / (10 * 1000))
 Metrics = Dict[str, torch.Tensor]
@@ -172,41 +184,82 @@ def nchw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2)
 
 
-def make_steps(state: Stage2State, cfg, lpips_params: Optional[Any] = None
-               ) -> Tuple[Callable, Callable, Callable, Callable]:
+def render_image(renderer: AvatarRenderer, latent_codes: torch.Tensor,
+                 batch, num_coarse: int, num_fine: int, *,
+                 perturb: bool = False, noise_std: float = 0.0, rng=None,
+                 mesh=None):
+    """The render [B, s, s, 3 + C] and its opacity [B, s, s, 1] of the
+    batch's rays. With ``mesh``, ``batch`` holds this rank's block of the
+    rays, ``rng`` is this rank's randomness, and the outputs are
+    all-gathered to the whole image's."""
+    rays = batch["mv_rays"]
+    out = renderer(
+        rays[..., :8], rays[..., 8:11], latent_codes[batch["dataset_idx"]],
+        batch["inv_head_T"], batch["front_render_cond"],
+        batch["left_render_cond"], batch["right_render_cond"],
+        num_coarse=num_coarse, num_fine=num_fine, perturb=perturb,
+        radiance_field_noise_std=noise_std, rng=rng)
+    fine = out["rgb_fine"] is not None
+    rgb = out["rgb_fine"] if fine else out["rgb_coarse"]
+    acc = out["acc_fine"] if fine else out["acc_coarse"]
+    if mesh_rank_size(mesh)[1] > 1:
+        group = mesh.get_group()
+        rgb = comm.all_gather(rgb, 1, group)
+        acc = comm.all_gather(acc, 1, group)
+    B, s = rgb.shape[0], renderer.render_size
+    return rgb.reshape(B, s, s, -1), acc.reshape(B, s, s, 1)
+
+
+def make_steps(state: Stage2State, cfg, lpips_params: Optional[Any] = None,
+               mesh=None) -> Tuple[Callable, Callable, Callable, Callable]:
     """(d_step, r1_step, g_step, dg_step): each updates ``state`` in place
     and returns its metrics, detached. d_step, g_step and dg_step take
     (batch, rng), r1_step (batch); ``batch`` holds the loader's tensors plus
     ``gt_hr_img`` [B, 512, 512, 3] and ``gt_lr_mask`` [B, 128, 128, 1]
-    (``cli/train_avatarHD.py:prepare_batch``)."""
+    (``cli/train_avatarHD.py:prepare_batch``).
+
+    ``mesh``: ``batch`` holds this rank's block of the rays (``mv_rays``,
+    ``gt_color`` [B, R / N, ...]; the images whole); ``rng`` is a
+    generator (the same on every rank) or the draws of the whole batch."""
     gan, nerf_cfg = cfg.gan, cfg.nerf.train
     render_size = cfg.models.StyleUnet.inp_size
     gen_size = cfg.models.StyleUnet.out_size
     mask_weight = cfg.experiment.mask_weight
     renderer, gen, disc = state.renderer, state.generator, state.discriminator
+    nerf_params = list(renderer.parameters()) + [state.latent_codes]
+    group = None if mesh is None else mesh.get_group()
+
+    def average(*modules_or_params) -> None:
+        """The gradients of the given modules and parameter lists, averaged
+        over the ranks."""
+        if mesh is None:
+            return
+        params = []
+        for m in modules_or_params:
+            params += (list(m.parameters())
+                       if isinstance(m, torch.nn.Module) else m)
+        comm.all_reduce_grads(params, group=group)
 
     def draws(rng: Rng, batch) -> Stage2Draws:
-        if isinstance(rng, Stage2Draws):
-            return rng
         rays = batch["mv_rays"]
+        if isinstance(rng, Stage2Draws):
+            return Stage2Draws(rank_rng(rng.render, rays, False, mesh),
+                               rng.styles)
         B, R = rays.shape[:2]
         render = draw_render_noise(
-            rng, B, R, nerf_cfg.num_coarse, nerf_cfg.num_fine,
-            bool(nerf_cfg.perturb), float(nerf_cfg.radiance_field_noise_std),
-            rays.device, rays.dtype)
+            rank_rng(rng, rays, False, mesh), B, R, nerf_cfg.num_coarse,
+            nerf_cfg.num_fine, bool(nerf_cfg.perturb),
+            float(nerf_cfg.radiance_field_noise_std), rays.device, rays.dtype)
         return Stage2Draws(render, sample_styles(rng, gen, B, gan,
                                                  rays.device))
 
     def render_full(batch, noise: RenderNoise):
-        rays = batch["mv_rays"]
+        render, mask = render_image(
+            renderer, state.latent_codes, batch, nerf_cfg.num_coarse,
+            nerf_cfg.num_fine, perturb=bool(nerf_cfg.perturb),
+            noise_std=float(nerf_cfg.radiance_field_noise_std), rng=noise,
+            mesh=mesh)
         latent = state.latent_codes[batch["dataset_idx"]]
-        render, mask = renderer.render_full_image(
-            rays[..., :8], rays[..., 8:11], latent, batch["inv_head_T"],
-            batch["front_render_cond"], batch["left_render_cond"],
-            batch["right_render_cond"], num_coarse=nerf_cfg.num_coarse,
-            num_fine=nerf_cfg.num_fine, perturb=bool(nerf_cfg.perturb),
-            radiance_field_noise_std=float(nerf_cfg.radiance_field_noise_std),
-            rng=noise)
         return render, mask, latent_code_loss(state.latent_codes, latent)
 
     def generate(render, s: StyleDraws):
@@ -269,6 +322,7 @@ def make_steps(state: Stage2State, cfg, lpips_params: Optional[Any] = None
         state.d_opt.zero_grad(set_to_none=True)
         loss, metrics = d_loss(fake_img, batch["gt_hr_img"])
         (loss * L.gan_loss_weight(state.step)).backward()
+        average(disc)
         state.d_opt.step()
         return detached(metrics)
 
@@ -277,6 +331,7 @@ def make_steps(state: Stage2State, cfg, lpips_params: Optional[Any] = None
         r1 = L.d_r1_penalty(disc, nchw(batch["gt_hr_img"]))
         ((gan.r1 / 2.0) * r1 * L.gan_loss_weight(state.step)
          * gan.d_reg_every).backward()
+        average(disc)
         state.d_opt.step()
         return {"r1": r1.detach()}
 
@@ -286,6 +341,7 @@ def make_steps(state: Stage2State, cfg, lpips_params: Optional[Any] = None
         state.g_opt.zero_grad(set_to_none=True)
         total, metrics, _ = g_loss(batch, dr)
         total.backward()
+        average(nerf_params, gen)
         g_update()
         return detached(metrics)
 
@@ -298,6 +354,7 @@ def make_steps(state: Stage2State, cfg, lpips_params: Optional[Any] = None
         # D's loss on the same image, on D before this step's update
         loss, d_metrics = d_loss(fake_img.detach(), batch["gt_hr_img"])
         (loss * L.gan_loss_weight(state.step)).backward()
+        average(nerf_params, gen, disc)
         state.d_opt.step()
         g_update()
         return detached({**metrics, **d_metrics})
