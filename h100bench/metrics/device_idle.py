@@ -1,0 +1,9 @@
+"""The share of the traced window in which no kernel, copy or fill ran on
+the device (torch.profiler), in %. Read for every ``device_idle.<cell>``."""
+
+
+def read(run):
+    t = run.traced
+    if t is None or t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
