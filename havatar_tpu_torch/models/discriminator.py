@@ -35,6 +35,7 @@ from havatar_tpu_torch.models.blocks import (
 )
 from havatar_tpu_torch.models.generators import channel_map
 from havatar_tpu_torch.ops.upfirdn2d import haar_transform
+from havatar_tpu_torch.utils.profiling import span
 
 
 class WaveletDiscriminator(nn.Module):
@@ -73,20 +74,22 @@ class WaveletDiscriminator(nn.Module):
 
     def forward(self, img: torch.Tensor,
                 flat_pose: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = haar_transform(img.to(self.compute_dtype))
-        out = None
-        for from_rgb, conv in zip(self.from_rgbs, self.convs):
-            x, out = from_rgb(x, out)
-            out = conv(out)
-        _, out = self.from_rgbs[-1](x, out)
-        out = self.final_conv(minibatch_stddev(out, 4, 1))
-        out = self.final_linear(out.reshape(out.shape[0], -1)).float()
-        if self.c_dim == 0:
-            return out
-        if flat_pose is None:
-            raise ValueError("a discriminator with c_dim > 0 needs flat_pose")
-        h = flat_pose
-        for layer in self.mapping:
-            h = layer(h)
-        h = h * torch.rsqrt(h.square().mean(dim=1, keepdim=True) + 1e-8)
-        return (out * h).sum(dim=1, keepdim=True) / math.sqrt(self.c_dim)
+        with span("disc"):
+            x = haar_transform(img.to(self.compute_dtype))
+            out = None
+            for from_rgb, conv in zip(self.from_rgbs, self.convs):
+                x, out = from_rgb(x, out)
+                out = conv(out)
+            _, out = self.from_rgbs[-1](x, out)
+            out = self.final_conv(minibatch_stddev(out, 4, 1))
+            out = self.final_linear(out.reshape(out.shape[0], -1)).float()
+            if self.c_dim == 0:
+                return out
+            if flat_pose is None:
+                raise ValueError(
+                    "a discriminator with c_dim > 0 needs flat_pose")
+            h = flat_pose
+            for layer in self.mapping:
+                h = layer(h)
+            h = h * torch.rsqrt(h.square().mean(dim=1, keepdim=True) + 1e-8)
+            return (out * h).sum(dim=1, keepdim=True) / math.sqrt(self.c_dim)

@@ -34,6 +34,7 @@ from havatar_tpu_torch.models.blocks import (
     ToRGB,
 )
 from havatar_tpu_torch.ops.upfirdn2d import inverse_haar_transform
+from havatar_tpu_torch.utils.profiling import span
 
 
 def channel_map(channel_multiplier: int = 2) -> Dict[int, int]:
@@ -326,30 +327,31 @@ class StyleUNetSR(_CondEncoder):
                 noise: Optional[Sequence[torch.Tensor]] = None,
                 inject_index: Optional[int] = None) -> torch.Tensor:
         cdt = self.compute_dtype
-        if isinstance(styles, torch.Tensor):
-            styles = [styles]
-        ws = [self.style(s.to(cdt)) for s in styles]
-        if len(ws) == 1:
-            split = self.n_latent
-        elif inject_index is None:
-            split = self.n_latent // 2
-        else:
-            split = int(inject_index)
+        with span("sr"):
+            if isinstance(styles, torch.Tensor):
+                styles = [styles]
+            ws = [self.style(s.to(cdt)) for s in styles]
+            if len(ws) == 1:
+                split = self.n_latent
+            elif inject_index is None:
+                split = self.n_latent // 2
+            else:
+                split = int(inject_index)
 
-        def latent(i):
-            return ws[0] if i < split else ws[-1]
+            def latent(i):
+                return ws[0] if i < split else ws[-1]
 
-        noise = [None] * len(self.convs) if noise is None else list(noise)
-        cond_list = self._encode(cond_img.to(cdt))
-        out, skip = None, None
-        for k, ci in enumerate(self.inject):
-            i = 2 * k
-            if k == 0:
-                out = self.comb_convs[str(ci)](cond_list[ci])
-            elif ci is not None:
-                out = self.comb_convs[str(ci)](
-                    torch.cat([out, cond_list[ci]], dim=1))
-            out = self.convs[i](out, latent(i), noise[i])
-            out = self.convs[i + 1](out, latent(i + 1), noise[i + 1])
-            skip = self.to_rgbs[k](out, latent(i + 2), skip)
-        return inverse_haar_transform(skip.float())
+            noise = [None] * len(self.convs) if noise is None else list(noise)
+            cond_list = self._encode(cond_img.to(cdt))
+            out, skip = None, None
+            for k, ci in enumerate(self.inject):
+                i = 2 * k
+                if k == 0:
+                    out = self.comb_convs[str(ci)](cond_list[ci])
+                elif ci is not None:
+                    out = self.comb_convs[str(ci)](
+                        torch.cat([out, cond_list[ci]], dim=1))
+                out = self.convs[i](out, latent(i), noise[i])
+                out = self.convs[i + 1](out, latent(i + 1), noise[i + 1])
+                skip = self.to_rgbs[k](out, latent(i + 2), skip)
+            return inverse_haar_transform(skip.float())

@@ -64,6 +64,7 @@ from havatar_tpu_torch.ops.volume_render import (
     sample_pdf,
     volume_render_radiance_field,
 )
+from havatar_tpu_torch.utils.profiling import span
 
 
 class RenderNoise(NamedTuple):
@@ -184,8 +185,10 @@ class AvatarRenderer(nn.Module):
                    skin_vol: torch.Tensor) -> torch.Tensor:
         """[B, R, S, 3] world points -> canonical points [B, R*S, 3]."""
         b, r, s = pts.shape[:3]
-        return self.headpose_skin_net(pts.reshape(b, r * s, 3), inv_head_T,
-                                      skin_vol, dtype=self.skin_compute_dtype)
+        with span("render.skinning"):
+            return self.headpose_skin_net(pts.reshape(b, r * s, 3),
+                                          inv_head_T, skin_vol,
+                                          dtype=self.skin_compute_dtype)
 
     def _field_eval(self, pts: torch.Tensor, inv_head_T: torch.Tensor,
                     planes: torch.Tensor,
@@ -194,7 +197,8 @@ class AvatarRenderer(nn.Module):
         field's plain dense chain."""
         b, r, s = pts.shape[:3]
         can = self._canonical(pts, inv_head_T, skin_vol)
-        return self.model_coarse(can, None, planes).reshape(b * r, s, -1)
+        with span("render.field"):
+            return self.model_coarse(can, None, planes).reshape(b * r, s, -1)
 
     def _march_inputs(self, pts: torch.Tensor, inv_head_T: torch.Tensor,
                       planes: torch.Tensor, skin_vol: torch.Tensor):
@@ -352,7 +356,8 @@ class AvatarRenderer(nn.Module):
         d = torch.cat([d, d[..., -1:]], -1) * rd_norm
 
         mp = self.model_coarse.march_params(xs[0].dtype, permute=quad)
-        rgbmap, weights, keeps = coarse(*xs, d.float(), mp)
+        with span("render.field"):
+            rgbmap, weights, keeps = coarse(*xs, d.float(), mp)
         bgf = background_prior.reshape(B * R, 3)
 
         def finish(rgbmap, w, z):
@@ -385,9 +390,10 @@ class AvatarRenderer(nn.Module):
         z_new = z_samples.reshape(B, R, num_fine)
         pts_new = ro[..., None, :] + rd[..., None, :] * z_new[..., :, None]
         xs_new = self._march_inputs(pts_new, inv_head_T, planes, skin_vol)
-        rgbmap_f, w_concat = fine(
-            *xs_new, keeps, d_concat.float(), ranks.to(torch.int32), mp,
-            num_keep=num_coarse // 2)
+        with span("render.field"):
+            rgbmap_f, w_concat = fine(
+                *xs_new, keeps, d_concat.float(), ranks.to(torch.int32), mp,
+                num_keep=num_coarse // 2)
         (out["rgb_fine"], out["depth_fine"], out["acc_fine"],
          out["weights_max"]) = finish(rgbmap_f, w_concat, z_cat)
         return out
@@ -400,14 +406,16 @@ class AvatarRenderer(nn.Module):
                 radiance_field_noise_std: float = 0.0, rng=None,
                 fixed_volume: Optional[torch.Tensor] = None):
         B = ray_batch.shape[0]
-        planes = self.model_coarse.generate_planes(
-            latent_code, inv_head_T.reshape(B, -1), front_cond, left_cond,
-            right_cond)
-        return self.render_rays(
-            planes, ray_batch, background_prior, inv_head_T,
-            num_coarse=num_coarse, num_fine=num_fine, perturb=perturb,
-            radiance_field_noise_std=radiance_field_noise_std, rng=rng,
-            fixed_volume=fixed_volume)
+        with span("render"):
+            with span("render.planes"):
+                planes = self.model_coarse.generate_planes(
+                    latent_code, inv_head_T.reshape(B, -1), front_cond,
+                    left_cond, right_cond)
+            return self.render_rays(
+                planes, ray_batch, background_prior, inv_head_T,
+                num_coarse=num_coarse, num_fine=num_fine, perturb=perturb,
+                radiance_field_noise_std=radiance_field_noise_std, rng=rng,
+                fixed_volume=fixed_volume)
 
     def render_chunked(self, ray_batch: torch.Tensor,
                        background_prior: torch.Tensor,

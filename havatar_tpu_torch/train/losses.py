@@ -17,6 +17,8 @@ from typing import Callable, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from havatar_tpu_torch.utils.profiling import span
+
 Number = Union[float, torch.Tensor]
 
 
@@ -66,8 +68,9 @@ def d_r1_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
     ``create_graph``). ``d_apply`` maps images to scores; the JAX function's
     ``d_params`` are the module's own parameters here."""
     img = real_img.detach().requires_grad_(True)
-    (grads,) = torch.autograd.grad(d_apply(img).sum(), img,
-                                   create_graph=True)
+    score = d_apply(img).sum()
+    with span("backward"):
+        (grads,) = torch.autograd.grad(score, img, create_graph=True)
     return grads.square().sum() / real_img.shape[0]
 
 

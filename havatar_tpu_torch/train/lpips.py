@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from havatar_tpu_torch.device import resolve_device
+from havatar_tpu_torch.utils.profiling import span
 
 # VGG16 conv plan: (out_channels, layers_per_block), a max-pool between blocks
 _VGG_PLAN = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
@@ -93,7 +94,8 @@ def lpips(params: Params, img0: torch.Tensor,
 def lpips_loss(params: Params, img0_01: torch.Tensor,
                img1_01: torch.Tensor) -> torch.Tensor:
     """[0, 1]-ranged NHWC images."""
-    return lpips(params, img0_01 * 2.0 - 1.0, img1_01 * 2.0 - 1.0)
+    with span("lpips"):
+        return lpips(params, img0_01 * 2.0 - 1.0, img1_01 * 2.0 - 1.0)
 
 
 def _map_leaves(fn, tree):

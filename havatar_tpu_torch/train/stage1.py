@@ -46,6 +46,7 @@ from havatar_tpu_torch.parallel import comm
 from havatar_tpu_torch.parallel.mesh import mesh_rank_size
 from havatar_tpu_torch.train import losses as L
 from havatar_tpu_torch.train.lpips import lpips_loss
+from havatar_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -261,13 +262,15 @@ def make_train_step(state: TrainState, cfg,
     def train_step(batch: Dict[str, torch.Tensor], rng: Rng):
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(state.latent_codes, batch, rng)
-        loss.backward()
+        with span("backward"):
+            loss.backward()
         if mesh is not None:
             comm.all_reduce_grads(params, group=group)
-        lr = learning_rate(cfg, state.step)
-        for pg in state.optimizer.param_groups:
-            pg["lr"] = lr
-        state.optimizer.step()
+        with span("optim"):
+            lr = learning_rate(cfg, state.step)
+            for pg in state.optimizer.param_groups:
+                pg["lr"] = lr
+            state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 

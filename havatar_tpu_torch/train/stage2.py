@@ -67,6 +67,7 @@ from havatar_tpu_torch.train import losses as L
 from havatar_tpu_torch.train.ema import ema_update
 from havatar_tpu_torch.train.lpips import lpips_loss
 from havatar_tpu_torch.train.stage1 import _DTYPES, build_renderer, rank_rng
+from havatar_tpu_torch.utils.profiling import span
 
 EMA_DECAY = 0.5 ** (32.0 / (10 * 1000))
 Metrics = Dict[str, torch.Tensor]
@@ -241,17 +242,21 @@ def make_steps(state: Stage2State, cfg, lpips_params: Optional[Any] = None,
         comm.all_reduce_grads(params, group=group)
 
     def draws(rng: Rng, batch) -> Stage2Draws:
-        rays = batch["mv_rays"]
-        if isinstance(rng, Stage2Draws):
-            return Stage2Draws(rank_rng(rng.render, rays, False, mesh),
-                               rng.styles)
-        B, R = rays.shape[:2]
-        render = draw_render_noise(
-            rank_rng(rng, rays, False, mesh), B, R, nerf_cfg.num_coarse,
-            nerf_cfg.num_fine, bool(nerf_cfg.perturb),
-            float(nerf_cfg.radiance_field_noise_std), rays.device, rays.dtype)
-        return Stage2Draws(render, sample_styles(rng, gen, B, gan,
-                                                 rays.device))
+        """The step's draws, in the span ``draws`` (it holds
+        ``sample_styles``' two host reads)."""
+        with span("draws"):
+            rays = batch["mv_rays"]
+            if isinstance(rng, Stage2Draws):
+                return Stage2Draws(rank_rng(rng.render, rays, False, mesh),
+                                   rng.styles)
+            B, R = rays.shape[:2]
+            render = draw_render_noise(
+                rank_rng(rng, rays, False, mesh), B, R, nerf_cfg.num_coarse,
+                nerf_cfg.num_fine, bool(nerf_cfg.perturb),
+                float(nerf_cfg.radiance_field_noise_std), rays.device,
+                rays.dtype)
+            return Stage2Draws(render, sample_styles(rng, gen, B, gan,
+                                                     rays.device))
 
     def render_full(batch, noise: RenderNoise):
         render, mask = render_image(
@@ -306,9 +311,10 @@ def make_steps(state: Stage2State, cfg, lpips_params: Optional[Any] = None,
         return total, metrics, fake_img
 
     def g_update():
-        state.nerf_opt.step()
-        state.g_opt.step()
-        ema_update(state.g_ema, gen, EMA_DECAY)
+        with span("optim"):
+            state.nerf_opt.step()
+            state.g_opt.step()
+            ema_update(state.g_ema, gen, EMA_DECAY)
         state.step += 1
 
     def detached(m: Metrics) -> Metrics:
@@ -321,18 +327,22 @@ def make_steps(state: Stage2State, cfg, lpips_params: Optional[Any] = None,
             fake_img = generate(render, dr.styles)
         state.d_opt.zero_grad(set_to_none=True)
         loss, metrics = d_loss(fake_img, batch["gt_hr_img"])
-        (loss * L.gan_loss_weight(state.step)).backward()
+        with span("backward"):
+            (loss * L.gan_loss_weight(state.step)).backward()
         average(disc)
-        state.d_opt.step()
+        with span("optim"):
+            state.d_opt.step()
         return detached(metrics)
 
     def r1_step(batch) -> Metrics:
         state.d_opt.zero_grad(set_to_none=True)
         r1 = L.d_r1_penalty(disc, nchw(batch["gt_hr_img"]))
-        ((gan.r1 / 2.0) * r1 * L.gan_loss_weight(state.step)
-         * gan.d_reg_every).backward()
+        with span("backward"):
+            ((gan.r1 / 2.0) * r1 * L.gan_loss_weight(state.step)
+             * gan.d_reg_every).backward()
         average(disc)
-        state.d_opt.step()
+        with span("optim"):
+            state.d_opt.step()
         return {"r1": r1.detach()}
 
     def g_step(batch, rng: Rng) -> Metrics:
@@ -340,7 +350,8 @@ def make_steps(state: Stage2State, cfg, lpips_params: Optional[Any] = None,
         state.nerf_opt.zero_grad(set_to_none=True)
         state.g_opt.zero_grad(set_to_none=True)
         total, metrics, _ = g_loss(batch, dr)
-        total.backward()
+        with span("backward"):
+            total.backward()
         average(nerf_params, gen)
         g_update()
         return detached(metrics)
@@ -350,12 +361,15 @@ def make_steps(state: Stage2State, cfg, lpips_params: Optional[Any] = None,
         for opt in (state.nerf_opt, state.g_opt, state.d_opt):
             opt.zero_grad(set_to_none=True)
         total, metrics, fake_img = g_loss(batch, dr)
-        total.backward()
+        with span("backward"):
+            total.backward()
         # D's loss on the same image, on D before this step's update
         loss, d_metrics = d_loss(fake_img.detach(), batch["gt_hr_img"])
-        (loss * L.gan_loss_weight(state.step)).backward()
+        with span("backward"):
+            (loss * L.gan_loss_weight(state.step)).backward()
         average(nerf_params, gen, disc)
-        state.d_opt.step()
+        with span("optim"):
+            state.d_opt.step()
         g_update()
         return detached({**metrics, **d_metrics})
 
