@@ -1,7 +1,9 @@
 """Uniform box warp: world AABB -> the [-1, 1]^3 sampling cube.
 
 Port of ``havatar_tpu/ops/boxwarp.py`` (``get_box_warp_param``, ``BoxWarp``,
-``BoxWarpLegacy``).
+``BoxWarpLegacy``). Scale and offset are float32 tensors made on each device
+once (``utils/profiling.py:device_numbers``), never copied from the host in a
+step.
 """
 
 from __future__ import annotations
@@ -9,6 +11,8 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+
+from havatar_tpu_torch.utils.profiling import device_numbers
 
 
 def get_box_warp_param(
@@ -36,19 +40,18 @@ class BoxWarp:
     def from_bounds(cls, xyz_bounding) -> "BoxWarp":
         return cls(*get_box_warp_param(*xyz_bounding))
 
+    def _on(self, device: torch.device):
+        """(scale, trans) float32 on ``device``."""
+        return (device_numbers(self.scales, device, torch.float32),
+                device_numbers(self.trans, device, torch.float32))
+
     def __call__(self, coords: torch.Tensor) -> torch.Tensor:
-        scale = torch.tensor(self.scales, dtype=torch.float32,
-                             device=coords.device)
-        trans = torch.tensor(self.trans, dtype=torch.float32,
-                             device=coords.device)
+        scale, trans = self._on(coords.device)
         return coords * scale + trans
 
     def inv(self, coords: torch.Tensor) -> torch.Tensor:
         """The sampling cube back to world space: (coords - trans) / scale."""
-        scale = torch.tensor(self.scales, dtype=torch.float32,
-                             device=coords.device)
-        trans = torch.tensor(self.trans, dtype=torch.float32,
-                             device=coords.device)
+        scale, trans = self._on(coords.device)
         return (coords - trans) / scale
 
 

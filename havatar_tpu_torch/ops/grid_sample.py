@@ -32,6 +32,8 @@ from typing import Tuple
 
 import torch
 
+from havatar_tpu_torch.utils.profiling import device_numbers
+
 
 def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
     return (coord + 1.0) * 0.5 * (size - 1)
@@ -107,9 +109,9 @@ def sample_from_triplane(coords: torch.Tensor,
     [B, N, C, P]. Plane 0 reads (x, y), plane 1 (z, y), plane 2 (x, z); each
     plane has its top-left at (-1, -1). Zeros padding."""
     axes = ((0, 1), (2, 1), (0, 2))[:planes.shape[0]]
-    return torch.stack(
-        [grid_sample_2d(planes[p], coords[..., list(ax)])
-         for p, ax in enumerate(axes)], dim=-1)
+    cols = [device_numbers(ax, coords.device, torch.int64) for ax in axes]
+    return torch.stack([grid_sample_2d(planes[p], coords[..., c])
+                        for p, c in enumerate(cols)], dim=-1)
 
 
 def sample_image_features(xy: torch.Tensor, features: torch.Tensor,

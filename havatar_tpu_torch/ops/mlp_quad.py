@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -56,6 +56,7 @@ from torch.autograd.function import once_differentiable
 from havatar_tpu_torch.ops import cuda_build
 from havatar_tpu_torch.ops import mlp as M
 from havatar_tpu_torch.ops.grid_sample import _axis_weights, _unnormalize
+from havatar_tpu_torch.utils.profiling import device_numbers
 
 # widths the CUDA kernels are built for: the production field
 C_PLANE, N_PE = 64, M.FIN - 2 * 64
@@ -64,7 +65,7 @@ Params = Tuple[torch.Tensor, ...]
 
 
 @functools.lru_cache(maxsize=None)
-def _perm(C: int, n_pe: int) -> Tuple[List[int], List[int]]:
+def _perm(C: int, n_pe: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     """layer0's input columns: block order [xy (C), zy (C), posenc] from the
     reference's interleaved order (as ``_perm_list``), and its inverse."""
     perm = ([2 * c for c in range(C)] + [2 * c + 1 for c in range(C)]
@@ -72,7 +73,12 @@ def _perm(C: int, n_pe: int) -> Tuple[List[int], List[int]]:
     inv = [0] * len(perm)
     for i, p in enumerate(perm):
         inv[p] = i
-    return perm, inv
+    return tuple(perm), tuple(inv)
+
+
+def _cols(t: torch.Tensor, cols: Tuple[int, ...]) -> torch.Tensor:
+    """t[:, cols], with the index on t's device (made there once)."""
+    return t[:, device_numbers(cols, t.device, torch.int64)]
 
 
 def _widths(quads: torch.Tensor, aux: torch.Tensor) -> Tuple[int, int]:
@@ -100,7 +106,7 @@ def _plane_widths(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
 
 def _block_order(params: Sequence[torch.Tensor], C: int, n_pe: int) -> Params:
     perm, _ = _perm(C, n_pe)
-    return (params[0][:, perm], *params[1:])
+    return (_cols(params[0], perm), *params[1:])
 
 
 def _reduce(quads: torch.Tensor, aux: torch.Tensor, C: int,
@@ -141,7 +147,7 @@ def quad_rows(warped: torch.Tensor, H: int, W: int,
     the ZY plane's at (z, y); w8 [N, 8] float32, differentiable in
     warped). Both planes' cells in one pass over [2N] (x, y) pairs."""
     N = warped.shape[0]
-    cells, w = _corners(warped[:, [0, 1, 2, 1]].reshape(2 * N, 2), H, W,
+    cells, w = _corners(_cols(warped, (0, 1, 2, 1)).reshape(2 * N, 2), H, W,
                         padding_mode)
     return cells.reshape(N, 2).int(), w.reshape(N, 8).float()
 
@@ -157,8 +163,9 @@ def _quad_pack(p: torch.Tensor) -> torch.Tensor:
 def _table_rows(rows: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """rows [N, 2] -> [2N] int64 rows of the two planes' stacked quad
     table, each point's XY row then its ZY row."""
-    return (rows.long() + torch.tensor([0, (H - 1) * (W - 1)],
-                                       device=rows.device)).reshape(-1)
+    out = rows.to(torch.int64, copy=True)
+    out[:, 1] += (H - 1) * (W - 1)
+    return out.reshape(-1)
 
 
 def gather_rows(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
@@ -236,7 +243,7 @@ def quad_chain_bwd_plain(quads: torch.Tensor, aux: torch.Tensor,
     dw8 = (quads.float().view(N, 8, C) * dplane).sum(-1)
     _, inv = _perm(C, n_pe)
     return (dq, torch.cat([dx[:, 2 * C:], dw8], 1),
-            (grads[0][:, inv], *grads[1:]))
+            (_cols(grads[0], inv), *grads[1:]))
 
 
 def field_radiance_quad_plain(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
@@ -408,7 +415,7 @@ def quad_backward(plane_xy: torch.Tensor, plane_zy: torch.Tensor,
     _, inv = _perm(C_PLANE, N_PE)
     grads = M.unflatten_grads(flat)
     # dw0's columns come in block order
-    grads = (grads[0][:, inv], *grads[1:])
+    grads = (_cols(grads[0], inv), *grads[1:])
     return (dxy, dzy, daux,
             tuple(d.to(p.dtype) for d, p in zip(grads, params)))
 

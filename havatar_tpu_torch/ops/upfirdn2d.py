@@ -3,7 +3,10 @@ and the Haar wavelet transforms, on NCHW tensors.
 
 Port of ``havatar_tpu/ops/upfirdn2d.py``. One depthwise convolution does the
 filtering: zero-stuffing makes the upsample, ``F.pad`` (negative values crop)
-the padding, and the stride the downsample.
+the padding, and the stride the downsample. The Haar filters are made on
+the input's device once for each device and dtype
+(``utils/profiling.py:device_constant``), never copied from the host in a
+step.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from havatar_tpu_torch.utils.profiling import device_constant
 
 
 def make_kernel(k) -> torch.Tensor:
@@ -36,6 +41,16 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up=1, down=1,
 
     Output height (H * up_y + pad_y0 + pad_y1 - kh) // down_y + 1.
     """
+    # convolution with the kernel == cross-correlation with it flipped
+    return _correlate(x, torch.flip(kernel, (0, 1)).to(device=x.device,
+                                                       dtype=x.dtype),
+                      up, down, pad)
+
+
+def _correlate(x: torch.Tensor, w: torch.Tensor, up, down,
+               pad: Sequence[int]) -> torch.Tensor:
+    """``upfirdn2d`` with the kernel already flipped, on x's device and in
+    x's dtype."""
     up_x, up_y = _as_pair(up)
     down_x, down_y = _as_pair(down)
     if len(pad) == 2:
@@ -48,11 +63,9 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up=1, down=1,
         stuffed[:, :, ::up_y, ::up_x] = x
         x = stuffed
     x = F.pad(x, [pad_x0, pad_x1, pad_y0, pad_y1])
-    kh, kw = kernel.shape
-    # convolution with the kernel == cross-correlation with it flipped
-    w = torch.flip(kernel, (0, 1)).to(device=x.device, dtype=x.dtype)
-    w = w.expand(C, 1, kh, kw)
-    return F.conv2d(x, w, stride=(down_y, down_x), groups=C)
+    kh, kw = w.shape
+    return F.conv2d(x, w.expand(C, 1, kh, kw), stride=(down_y, down_x),
+                    groups=C)
 
 
 def upsample2d(x: torch.Tensor, kernel: torch.Tensor,
@@ -86,20 +99,28 @@ def _haar_kernels():
 
 
 _HAAR_LL, _HAAR_LH, _HAAR_HL, _HAAR_HH = _haar_kernels()
+# the forward's four kernels, then the inverse's negated LH and HL
+_HAAR = (_HAAR_LL, _HAAR_LH, _HAAR_HL, _HAAR_HH, -_HAAR_LH, -_HAAR_HL)
+
+
+def _haar_weight(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``_HAAR[k]`` flipped, on x's device in x's dtype."""
+    return device_constant(("haar", k), x.device, x.dtype,
+                           lambda: torch.flip(_HAAR[k], (0, 1)))
 
 
 def haar_transform(x: torch.Tensor) -> torch.Tensor:
     """Forward Haar DWT: [B, C, H, W] -> [B, 4C, H/2, W/2], channel blocks
     ll | lh | hl | hh."""
-    return torch.cat([upfirdn2d(x, k, down=2) for k in
-                      (_HAAR_LL, _HAAR_LH, _HAAR_HL, _HAAR_HH)], dim=1)
+    return torch.cat([_correlate(x, _haar_weight(x, k), 1, 2, (0, 0))
+                      for k in range(4)], dim=1)
 
 
 def inverse_haar_transform(x: torch.Tensor) -> torch.Tensor:
     """Inverse Haar DWT: [B, 4C, H, W] -> [B, C, 2H, 2W] (lh, hl negated)."""
     ll, lh, hl, hh = x.chunk(4, dim=1)
     pad = (1, 0, 1, 0)
-    return (upfirdn2d(ll, _HAAR_LL, up=2, pad=pad)
-            + upfirdn2d(lh, -_HAAR_LH, up=2, pad=pad)
-            + upfirdn2d(hl, -_HAAR_HL, up=2, pad=pad)
-            + upfirdn2d(hh, _HAAR_HH, up=2, pad=pad))
+    return (_correlate(ll, _haar_weight(x, 0), 2, 1, pad)
+            + _correlate(lh, _haar_weight(x, 4), 2, 1, pad)
+            + _correlate(hl, _haar_weight(x, 5), 2, 1, pad)
+            + _correlate(hh, _haar_weight(x, 3), 2, 1, pad))

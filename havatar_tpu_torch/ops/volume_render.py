@@ -14,9 +14,29 @@ from typing import Optional, Tuple
 import torch
 
 
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of an input with no zero. The
+    backward is PyTorch's own for that case, the reversed cumulative sum of
+    output * grad over the input, without the check for zeros that PyTorch's
+    backward makes first: a host read, which drains the device's queue."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def cumprod_exclusive(x: torch.Tensor) -> torch.Tensor:
-    """Exclusive cumulative product along the last axis."""
-    cp = torch.cumprod(x, dim=-1)
+    """Exclusive cumulative product along the last axis of an x with no
+    zero (compositing's 1 - alpha + 1e-10): where x holds a zero, the
+    gradient is not finite."""
+    cp = _Cumprod.apply(x)
     return torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
 
 

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from havatar_tpu_torch.device import resolve_device
-from havatar_tpu_torch.utils.profiling import span
+from havatar_tpu_torch.utils.profiling import device_numbers, span
 
 # VGG16 conv plan: (out_channels, layers_per_block), a max-pool between blocks
 _VGG_PLAN = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
@@ -75,8 +75,8 @@ def lpips(params: Params, img0: torch.Tensor,
           img1: torch.Tensor) -> torch.Tensor:
     """img0, img1: [B, H, W, 3] in [-1, 1]. Returns the scalar mean
     distance."""
-    shift = torch.tensor(_SHIFT, dtype=img0.dtype, device=img0.device)
-    scale = torch.tensor(_SCALE, dtype=img0.dtype, device=img0.device)
+    shift = device_numbers(_SHIFT, img0.device, img0.dtype)
+    scale = device_numbers(_SCALE, img0.device, img0.dtype)
 
     def features(x):
         return _vgg_features(params, ((x - shift) / scale)

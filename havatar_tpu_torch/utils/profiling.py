@@ -30,6 +30,15 @@ can be put down to a part of the step. The spans in the port:
 
 With no profiler running, ``span`` returns one shared no-op context: a
 flag check and no allocation, so the spans stay in the code at no cost.
+
+``device_constant`` and ``device_numbers`` hold the small constant tensors
+that the ops use inside a step (the Haar filters, the box warp's scale and
+offset, LPIPS's input shift and scale, the column indices of the plane
+lookups and of the quad op's layer 0), made once for each device and dtype:
+a copy from the host inside a step, as a host tensor or a Python list used
+as an index makes, would synchronize and drain the device's queue.
+``constant_uploads()`` counts the tensors made so far; after a first step it
+stays flat.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import deque
-from typing import Optional
+from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
 
@@ -52,6 +61,41 @@ def span(name: str):
     if not _profiling():
         return _OFF
     return torch.profiler.record_function(PREFIX + name)
+
+
+_CONSTANTS: Dict[Tuple[Hashable, torch.device, torch.dtype],
+                 torch.Tensor] = {}
+
+
+def device_constant(key: Hashable, device: torch.device, dtype: torch.dtype,
+                    make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``make()`` (a host tensor) on ``device`` in ``dtype``, made on the
+    first call for each (key, device, dtype) and the same tensor after.
+    ``device`` is a tensor's ``.device`` (with its index, so each card of a
+    sharded run holds its own copy). The tensor is made outside any
+    ``inference_mode``, so that a later training step may save it for its
+    backward."""
+    k = (key, device, dtype)
+    t = _CONSTANTS.get(k)
+    if t is None:
+        with torch.inference_mode(False):
+            t = make().to(device=device, dtype=dtype)
+        _CONSTANTS[k] = t
+    return t
+
+
+def device_numbers(values: tuple, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype)`` on ``device``, made there once
+    (``device_constant``): a tuple of numbers such as a box warp's scale or
+    an index into a tensor's columns."""
+    return device_constant(("numbers", values), device, dtype,
+                           lambda: torch.tensor(values, dtype=dtype))
+
+
+def constant_uploads() -> int:
+    """How many constants ``device_constant`` has made so far."""
+    return len(_CONSTANTS)
 
 
 class StepTimer:
